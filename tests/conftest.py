@@ -8,6 +8,11 @@ import pytest
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

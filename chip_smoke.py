@@ -9,13 +9,15 @@ non-zero without printing a result:
 1. device   the card's name and power limit as ``nvidia-smi`` reports them;
             the hand-written kernels are built from ``csrc/`` (one ``nvcc``
             per source, all at once) and their register use is printed.
-2. kernels  every CUDA entry point at main-path shapes (B=8, 32 query and
-            8 KV heads, head_dim 64, bf16 arena, buckets 256..1024, slots
-            with the scratch sentinel repeated, block tables) against its
-            plain PyTorch version on the card, paged == dense bitwise, and
-            CUDA-event times of kernel, plain version and
-            ``F.scaled_dot_product_attention`` over the gathered rows (a
-            yardstick only; the port never calls it), beside the bound.
+2. kernels  every attention entry point at main-path shapes (B=8, bf16
+            arena, buckets 256..1024, slots with the scratch sentinel
+            repeated, block tables) twice: at llama3.2-1b's heads (32 query
+            / 8 KV, head_dim 64) and at qwen3-1.7b's (16 / 8, head_dim
+            128); each against its plain PyTorch version on the card,
+            paged == dense bitwise, and CUDA-event times of kernel, plain
+            version and ``F.scaled_dot_product_attention`` over the
+            gathered rows (a yardstick only; the port never calls it),
+            beside the bound.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -24,11 +26,27 @@ non-zero without printing a result:
             after it; every document must resolve, the kernel launch counts
             must match the launches the server made, and preds, confs and
             per-document $ must be bitwise equal across the three runs.
+4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
+            full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
+            norm), bf16, batch 8, paged plane.  Restructure 28 documents
+            (classifier fit on 12, every document reordered through the
+            ``relevance_score`` kernel, one launch per document, orders
+            equal to those of the plain version's scores), score the six
+            proxy candidates through the engine, Algorithm 2 + 4, serve
+            16 test documents under the assembled cascade and its strict
+            variant (attention launches must match the server's), then the
+            oracle alone.  Every document must resolve; an empty assembled
+            cascade is a legal outcome with random weights.
+5. relevance ``relevance_score`` against its plain version on every
+            document of the path, a ragged chunk count with ``len = 0`` and
+            ``len > T`` chunks, and 4096 chunks; timed at one document and
+            at 4096 chunks, beside its bound.
    With ``--profile``: ``torch.profiler`` counts of device kernels, their
    busy time against the wall clock, and the split between our attention
-   kernels, cuBLAS products and everything else, for one decode step and
-   one serving run.
-4. a ``{"kernels": [...]}`` JSON line, then the result line
+   kernels, cuBLAS products and everything else, for one decode step of
+   each model and one serving run.
+6. a ``{"kernels": [...]}`` JSON line (launches: the serving and build
+   runs, each counted from zero), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports only ``repro_torch`` (from ``src/`` beside this file).
@@ -49,6 +67,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor rate
+PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 # Kernel against plain version, bf16 outputs.  rtol 2**-7 is one bf16 ulp
 # of the output (both sides round f32 to bf16, so a value near a rounding
 # edge may land one ulp apart).  Decode accumulates in f32 exactly as its
@@ -58,6 +77,15 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor rate
 # off by a few keys moves an output by ~|v|/400 per key and fails both.
 DECODE_TOL = dict(atol=1e-4, rtol=2 ** -7)
 EXTEND_TOL = dict(atol=4e-3, rtol=2 ** -7)
+# relevance_score against its plain version, f32 scores in (0, 1): both
+# sum in f32 in different orders (the kernel sums tokens per column, then
+# dots with w; the plain version pools then multiplies), so they differ by
+# a few f32 ulps (measured 3.6e-7 at 4096 chunks on the H100; one ulp is
+# 6e-8 at 0.5-1).  atol 2e-6 keeps a 5x margin and is tighter than the
+# JAX package's own Pallas-vs-reference bound (atol 2e-5, rtol 1e-5); a
+# chunk that pooled one row too many or too few moves its score by
+# ~|x.w| / (4 len), orders above it.
+REL_TOL = dict(atol=2e-6, rtol=0.0)
 
 OPS = {
     "o_orig": "does this opinion overturn a lower court decision",
@@ -76,7 +104,13 @@ def device_line() -> str:
 class Timer:
     """Mean device time of one call, from CUDA events around each call;
     a 64 MiB write between calls evicts the 50 MB L2, as the serving
-    path finds each layer's KV cold."""
+    path finds each layer's KV cold.  A ~2 ms device-side spin is queued
+    before the start event, so the host has enqueued the whole call
+    before the device reaches it: the events time the device work, not
+    the host's launch overhead (which dominates calls shorter than
+    ~50 us)."""
+
+    SPIN_CYCLES = 4_000_000
 
     def __init__(self, dev):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -89,6 +123,7 @@ class Timer:
         total = 0.0
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             self.start.record()
             fn()
             self.end.record()
@@ -97,9 +132,9 @@ class Timer:
         return total / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -116,14 +151,15 @@ def sdpa_mask(kv_len, Sq, Skv, q_offset, causal, dev):
     return m
 
 
-def kernel_phase(dev, timer):
+def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
+    """The four attention entry points at one model's head shapes."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    B, Hq, Hkv, Dh = 8, 32, 8, 64
+    B = 8
     N = 17                                   # 16 slots + scratch row 16
     slots = torch.tensor([5, 2, 9, 0, 14, 7, 16, 16], dtype=torch.int32,
                          device=dev)
@@ -253,12 +289,13 @@ def kernel_phase(dev, timer):
     for r in rows:
         r["route"] = "cuda"
         tol = DECODE_TOL if "decode" in r["name"] else EXTEND_TOL
-        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
-              f"(tol atol={tol['atol']:g} rtol={tol['rtol']:g}), kernel "
-              f"{r['ms']:.4f} ms, "
+        print(f"kernel {r['name']} [{label}]: max_abs_err "
+              f"{r['max_abs_err']:.3g} (tol atol={tol['atol']:g} "
+              f"rtol={tol['rtol']:g}), kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    print("kernels: paged == dense bitwise (slots and block tables)")
+    print(f"kernels [{label}]: paged == dense bitwise (slots and block "
+          "tables)")
     return rows
 
 
@@ -276,10 +313,24 @@ def tenant_cascades():
     ]
 
 
-def serve_once(models, params, docs, *, paged: bool, inflight: int):
-    from repro_torch.data.tokenizer import HashWordTokenizer
+def _zero_counts():
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import relevance_score as rel
+    for mod in (dec, fla, rel):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def _counts():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import relevance_score as rel
+    return {**dec.LAUNCHES, **fla.LAUNCHES, **rel.LAUNCHES}
+
+
+def serve_once(models, params, docs, *, paged: bool, inflight: int):
+    from repro_torch.data.tokenizer import HashWordTokenizer
     from repro_torch.serving.engine import CascadeServer, LMBackend
     from repro_torch.serving.scheduler import RESOLVED
 
@@ -292,9 +343,7 @@ def serve_once(models, params, docs, *, paged: bool, inflight: int):
     srv = CascadeServer(backends, OPS, n_classes=2, batch_size=8,
                         inflight=inflight, device="cuda")
     handles = [srv.register(c) for c in tenant_cascades()]
-    for mod in (dec, fla):
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, d in enumerate(sorted(docs)):
@@ -303,7 +352,7 @@ def serve_once(models, params, docs, *, paged: bool, inflight: int):
     srv.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**dec.LAUNCHES, **fla.LAUNCHES}
+    counts = _counts()
     results = {h.query_id: h.result() for h in handles}
     for qid, r in results.items():
         assert set(r.status) == set(docs), f"query {qid}: docs missing"
@@ -375,6 +424,190 @@ def serving_phase():
     return launches, models, params, docs
 
 
+def build_phase():
+    """Construct a cascade from engine scores and serve it (paper Figure
+    2, steps 1-5) at full width: llama3.2-1b proxy (seed 1) and
+    qwen3-1.7b oracle (seed 2), bf16, batch 8, paged plane.  The launch
+    counters are zeroed before step 1 and read after step 5."""
+    from repro_torch.core.tasks import Cascade
+    from repro_torch.data.documents import generate_corpus
+    from repro_torch.kernels import relevance_score as rel
+    from repro_torch.kernels.relevance_score import relevance_score_plain
+    from repro_torch.launch import construct
+    from repro_torch.launch.serve import build_engine, warm_arena
+    from repro_torch.serving.scheduler import RESOLVED
+
+    batch = 8
+    docs = generate_corpus(28, n_classes=2, avg_lines=16, seed=11)
+    dev_ids = [d.doc_id for d in docs[:12]]
+    test_ids = [d.doc_id for d in docs[12:]]
+    engine = build_engine(batch, None, 64, device="cuda", full_width=True,
+                          operations=construct.OPS)
+    for name, be in engine.backends.items():
+        b = be.model.rcfg.base
+        assert be.uses_paged_kv() and be.model.dtype == torch.bfloat16
+        print(f"build: {name} {b.name} full width ({b.num_layers} layers, "
+              f"d_model {b.d_model}, {b.num_heads}/{b.num_kv_heads} heads, "
+              f"head_dim {b.head_dim}, qk_norm {b.qk_norm}, vocab "
+              f"{be.model.rcfg.padded_vocab}, bf16)")
+    tokz = engine.backends["proxy"].tokenizer
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    # 1. restructure: fit on the dev split, reorder every document
+    restr, reordered = construct.restructure(docs, 12, device="cuda")
+    torch.cuda.synchronize()
+    t_restr = time.perf_counter() - t_path
+    n_rel = rel.LAUNCHES["relevance_score"]
+    # 3. candidates on the dev split, against the oracle's predictions
+    dev_docs = {i: reordered[i] for i in dev_ids}
+    oracle_ref = engine.run(Cascade([]), dev_docs)
+    assert set(oracle_ref.status.values()) == {RESOLVED}, oracle_ref.status
+    oracle_pred = np.asarray([oracle_ref.pred[i] for i in dev_ids])
+    scores = construct.score_candidates(
+        engine, dev_docs, construct.candidate_configs(), batch)
+    cm = construct.doc_cost_model(tokz, list(dev_docs.values()))
+    # 4. Algorithm 2 + Algorithm 4
+    eligible, cascade, _ = construct.assemble(scores, oracle_pred, cm)
+    # 5. two registered queries over the test split, then the oracle
+    test_docs = {i: reordered[i] for i in test_ids}
+    warm_arena(engine, cascade, test_docs, batch)
+    before = _counts()
+    served = construct.serve_two_queries(engine, cascade, test_docs)
+    torch.cuda.synchronize()
+    serve_counts = {k: v - before[k] for k, v in _counts().items()}
+    want = {"paged_flash_attention": 0, "paged_decode_attention": 0}
+    for rec in engine.telemetry.launches.items():
+        assert rec.ok, rec
+        n_layers = engine.backends[rec.model].model.num_layers
+        if rec.f_len > rec.cached_len:
+            want["paged_flash_attention"] += n_layers
+        want["paged_decode_attention"] += n_layers * len(
+            tokz.encode(construct.OPS[rec.op_id]))
+    for k, v in want.items():
+        assert serve_counts[k] == v, (k, serve_counts, want)
+    oracle_only = engine.run(Cascade([]), test_docs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_path
+    counts = _counts()
+
+    assert n_rel == len(docs), (n_rel, len(docs))
+    for name, r in (("main", served.main), ("strict", served.strict),
+                    ("oracle-only", oracle_only)):
+        assert set(r.status) == set(test_ids), name
+        bad = {d: st for d, st in r.status.items() if st != RESOLVED}
+        assert not bad, f"{name}: not resolved {bad}"
+    # the kernel's line orders against the plain version's, same w and b
+    w, b = restr.head()
+    lens, n_chunks = [], 0
+    for d in docs:
+        x, lengths = restr.chunk_inputs(d)
+        plain = relevance_score_plain(x, lengths, w, b).cpu().numpy()
+        assert d.reordered(restr.order_lines(d, plain)).text \
+            == reordered[d.doc_id], f"doc {d.doc_id}: kernel order differs"
+        lens.append(lengths.cpu().numpy())
+        n_chunks += len(lengths)
+    lens = np.concatenate(lens)
+    T = restr.embedder.tokens("")[0].shape[0]
+    fill = float(np.minimum(lens, T).mean() / T)
+
+    res = served.main
+    agree = float(np.mean([res.pred[i] == oracle_only.pred[i]
+                           for i in test_ids]))
+    lat = res.stats.latencies + served.strict.stats.latencies
+    print(f"build: granularity {restr.granularity} lines, classifier F1 "
+          f"{restr.f1:.4f}")
+    print(f"build: {n_chunks} chunks scored over {len(docs)} documents "
+          f"({n_rel} relevance_score launches), mean fill "
+          f"{fill:.4f} of T={T} token rows, restructure wall "
+          f"{t_restr:.3f} s")
+    print(f"build: kernel-ordered reorder == plain-ordered reorder for all "
+          f"{len(docs)} documents")
+    print(f"build: eligible {[t.config.key() for t in eligible]}")
+    print(f"build: assembled {[t.config.key() for t in cascade.tasks]}")
+    print(f"build: cost ${res.cost:.9g} vs oracle-only "
+          f"${oracle_only.cost:.9g} ({res.cost / oracle_only.cost:.4f}x), "
+          f"strict ${served.strict.cost:.9g}; agreement with the oracle "
+          f"{agree:.4f}")
+    print(f"build: served 2 queries x {len(test_ids)} docs, all RESOLVED: "
+          f"latency p50 {1e3 * np.quantile(lat, 0.5):.1f} ms p99 "
+          f"{1e3 * np.quantile(lat, 0.99):.1f} ms, {served.launches} "
+          f"launches, wall {served.wall_s:.3f} s; attention launches "
+          f"match the server's")
+    print(f"build: path wall {wall:.3f} s, kernel launches "
+          f"{json.dumps(counts)}")
+    return counts, restr, docs, engine
+
+
+def relevance_phase(dev, timer, restr, docs):
+    """``relevance_score`` against its plain version on the card: every
+    document of the path, a ragged chunk count with ``len = 0`` and
+    ``len > T`` chunks, and one corpus-scale call (C = 4096); timed at
+    the path's shape (the first test document) and at C = 4096."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.relevance_score import relevance_score_plain
+
+    w, b = restr.head()
+    err = 0.0
+    path_lens = []
+    for d in docs:
+        x, lengths = restr.chunk_inputs(d)
+        k = ops.relevance_score(x, lengths, w, b)
+        p = relevance_score_plain(x, lengths, w, b)
+        torch.testing.assert_close(k, p, **REL_TOL)
+        err = max(err, max_err(k, p))
+        path_lens.append(lengths)
+    g = torch.Generator(device=dev).manual_seed(3)
+    _, T, D = restr.chunk_inputs(docs[0])[0].shape
+    all_lens = torch.cat(path_lens)
+    cases = {}
+    # ragged C, an empty chunk and two overlong ones
+    lens = all_lens[:13].clone()
+    lens[0], lens[5], lens[9] = 0, T + 7, 3 * T
+    cases["ragged"] = lens
+    # corpus scale: the path's chunk lengths tiled to 4096 chunks
+    cases["corpus"] = all_lens.repeat(4096 // len(all_lens) + 1)[:4096]
+    xs = {}
+    for name, lens in cases.items():
+        x = torch.randn((len(lens), T, D), generator=g, device=dev)
+        k = ops.relevance_score(x, lens.contiguous(), w, b)
+        p = relevance_score_plain(x, lens, w, b)
+        torch.testing.assert_close(k, p, **REL_TOL)
+        err = max(err, max_err(k, p))
+        xs[name] = (x, lens.contiguous())
+    torch.testing.assert_close(      # len 0 scores sigmoid(b)
+        ops.relevance_score(*xs["ragged"], w, b)[:1], torch.sigmoid(b),
+        **REL_TOL)
+
+    def row(x, lengths):
+        C = x.shape[0]
+        n = float(torch.clamp(lengths, 0, T).sum())
+        nbytes = n * D * 4 + 12 * C + 4 * D
+        b_ms, b_by = bound(nbytes, 2.0 * n * D, PEAK_F32_FLOPS)
+        return dict(
+            ms=timer.ms(lambda: ops.relevance_score(x, lengths, w, b)),
+            plain_ms=timer.ms(lambda: relevance_score_plain(x, lengths, w,
+                                                            b)),
+            bound_ms=b_ms, bound_by=b_by, C=C)
+
+    path = row(*restr.chunk_inputs(docs[12]))
+    corpus = row(*xs["corpus"])
+    for label, r in (("path, one document", path), ("corpus", corpus)):
+        print(f"kernel relevance_score [{label}, C={r['C']}]: max_abs_err "
+              f"{err:.3g} (tol atol={REL_TOL['atol']:g} "
+              f"rtol={REL_TOL['rtol']:g}), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+    return dict(
+        name="relevance_score", route="cuda",
+        source="src/repro_torch/kernels/csrc/relevance_score.cu",
+        replaces="src/repro/kernels/relevance_score.py:41",
+        max_abs_err=err, ms=path["ms"], plain_ms=path["plain_ms"],
+        bound_ms=path["bound_ms"], bound_by=path["bound_by"],
+        library_ms=None)
+
+
 def _device_kernels(prof):
     from torch.autograd import DeviceType
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -413,14 +646,9 @@ def _report(label: str, kernels, wall_ms: float) -> None:
         print(f"profile [{label}]:     {n:6d} x {ms:9.3f} ms  {name[:100]}")
 
 
-def profile_phase(models, params, docs) -> None:
-    """Where the time goes (``--profile``): ``torch.profiler`` device
-    kernels of one paged decode step and of one paged serving run; wall
-    clocks come from runs without the profiler."""
+def _profile_decode_step(model, p, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    model, p = models["proxy"], params["proxy"]
     arena = model.init_states(9, 576)
     slots = torch.arange(8, dtype=torch.int32, device="cuda")
     pos = torch.full((8,), 512, dtype=torch.int32, device="cuda")
@@ -437,11 +665,25 @@ def profile_phase(models, params, docs) -> None:
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 10 * 1e3
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    _report("paged decode step, B=8, 512 cached keys, 16 layers",
-            _device_kernels(prof), wall)
+    _report(f"paged decode step, {label}, B=8, 512 cached keys, "
+            f"{model.num_layers} layers", _device_kernels(prof), wall)
+
+
+def profile_phase(models, params, docs, oracle) -> None:
+    """Where the time goes (``--profile``): ``torch.profiler`` device
+    kernels of one paged decode step of each model (the llama3.2-1b of
+    the serving phase, the qwen3-1.7b oracle of the build phase) and of
+    one paged serving run; wall clocks come from runs without the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    _profile_decode_step(models["proxy"], params["proxy"], "llama3.2-1b")
+    _profile_decode_step(oracle.model, oracle.params, "qwen3-1.7b")
 
     sub = {d: docs[d] for d in sorted(docs)[:8]}
     t0 = time.perf_counter()
@@ -472,12 +714,17 @@ def main() -> int:
                        for ln in _build.log_path(name).read_text().splitlines()
                        if "Used " in ln})
         print(f"build: {name}: {', '.join(regs)}")
-    rows = kernel_phase(dev, Timer(dev))
+    timer = Timer(dev)
+    rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
+    kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")
     launches, models, params, docs = serving_phase()
+    build_launches, restr, build_docs, engine = build_phase()
+    rows.append(relevance_phase(dev, timer, restr, build_docs))
     if "--profile" in sys.argv[1:]:
-        profile_phase(models, params, docs)
+        profile_phase(models, params, docs, engine.backends["oracle"])
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        # each path's run, counted from zero: serving, then build
+        r["launches"] = launches[r["name"]] + build_launches[r["name"]]
         assert r["launches"] > 0, r["name"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

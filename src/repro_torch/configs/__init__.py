@@ -13,11 +13,13 @@ from ..config import ModelConfig, reduced
 
 ARCHS: List[str] = [
     "llama3_2_1b",
+    "qwen3_1_7b",
 ]
 
 # public ids (dashes) -> module names
 ALIASES: Dict[str, str] = {
     "llama3.2-1b": "llama3_2_1b",
+    "qwen3-1.7b": "qwen3_1_7b",
 }
 
 

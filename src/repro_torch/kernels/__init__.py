@@ -1,2 +1,3 @@
-"""Attention kernels: hand-written CUDA for Hopper plus plain PyTorch
-versions; ``ops`` dispatches on the tensor's device."""
+"""Hand-written CUDA kernels for Hopper (attention and relevance
+scoring) plus their plain PyTorch versions; ``ops`` dispatches on the
+tensor's device."""

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "relevance_score")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,6 +54,9 @@ SIGNATURES: Dict[str, List] = {
         _L, _L, _L, _L, _L, _L,             # k strides, v strides
         _I, _I, _I, _F, _I, _I, _P],        # causal window q_offset scale
                                             # dtype_q dtype_kv stream
+    "repro_relevance_score": [
+        _P, _P, _P, _P, _P,                 # x lengths w b out
+        _I, _I, _I, _P],                    # C T D stream
 }
 
 

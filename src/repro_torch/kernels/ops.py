@@ -2,7 +2,8 @@
 
 A CPU tensor goes to the plain PyTorch version of a kernel; a CUDA tensor
 goes to the hand-written CUDA kernel (``decode_attention`` /
-``flash_attention``), whose wrapper raises on anything it does not take.
+``flash_attention`` / ``relevance_score``), whose wrapper raises on
+anything it does not take.
 There is no switch that sends a CUDA tensor to the plain path and no
 fallback: every CUDA call runs a kernel, ragged shapes included (the
 kernels mask their own edges).
@@ -20,6 +21,7 @@ import torch
 from . import decode_attention as _dec
 from . import flash_attention as _fla
 from . import ref
+from . import relevance_score as _rel
 from . import sanitize
 
 
@@ -196,3 +198,17 @@ def attention_paged(
     return _fla.paged_flash_attention_plain(
         q, k_arena, v_arena, slots, block_tables=block_tables,
         kv_len=kv_len, **kw)
+
+
+def relevance_score(
+    x: torch.Tensor,               # [C, T, D] f32 chunk token embeddings
+    lengths: torch.Tensor,         # [C] int32 valid tokens per chunk
+    w: torch.Tensor,               # [D] f32 classifier weights
+    b: torch.Tensor,               # one-element f32 bias
+) -> torch.Tensor:
+    """Chunk relevance ``sigmoid(meanpool(x) @ w + b)`` -> [C] f32.  A CUDA
+    ``x`` runs the fused kernel (which raises on anything it does not
+    take); a CPU ``x`` the plain version."""
+    if x.is_cuda:
+        return _rel.relevance_score(x, lengths, w, b)
+    return _rel.relevance_score_plain(x, lengths, w, b)

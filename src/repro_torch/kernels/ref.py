@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 Deliberately naive (materialize the full score matrix, f32 softmax): they
 define correctness for small shapes, serve every CPU tensor that reaches
@@ -91,3 +91,24 @@ def decode_reference(
     out = mha_reference(q[:, None], k, v, causal=False, window=None,
                         q_offset=0, kv_len=kv_len, sm_scale=sm_scale)
     return out[:, 0]
+
+
+def relevance_reference(
+    x: torch.Tensor,            # [C, T, D] chunk token embeddings
+    lengths: torch.Tensor,      # [C] valid token count per chunk
+    w: torch.Tensor,            # [D]
+    b: torch.Tensor,            # [] or [1] bias
+) -> torch.Tensor:
+    """sigmoid(meanpool(x) @ w + b) per chunk -> [C] relevance scores.
+
+    Rows ``t < lengths[c]`` are pooled and the sum is divided by the raw
+    ``max(lengths[c], 1)``, so a chunk longer than T pools all T rows but
+    divides by its length."""
+    T = x.shape[1]
+    mask = (torch.arange(T, device=x.device)[None, :]
+            < lengths[:, None]).float()
+    summed = torch.einsum("ctd,ct->cd", x.float(), mask)
+    denom = lengths.float().clamp_min(1.0)[:, None]
+    pooled = summed / denom
+    logit = pooled @ w.float() + b.float().reshape(())
+    return torch.sigmoid(logit)

@@ -23,8 +23,10 @@ Attention reads the arena through the paged kernels
 (``ops.attention_paged`` / ``ops.arena_decode_attention``) — no [B, S]
 gather copy.
 
-Sliding-window ring caches, cross-attention, qk-norm and M-RoPE are not
-ported yet and raise ``NotImplementedError``.
+``qk_norm`` (qwen3) applies a per-head RMS norm to q and k after the
+projections and before RoPE, in every mode.  Sliding-window ring caches,
+cross-attention and M-RoPE are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,17 +36,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope, init_dense
+from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm_apply
 
 
 def init_attention(gen: torch.Generator, d: int, h: int, kv: int, dh: int,
-                   dtype) -> Dict[str, Any]:
-    return {
+                   dtype, qk_norm: bool = False) -> Dict[str, Any]:
+    p = {
         "wq": init_dense(gen, (d, h * dh), dtype).reshape(d, h, dh),
         "wk": init_dense(gen, (d, kv * dh), dtype).reshape(d, kv, dh),
         "wv": init_dense(gen, (d, kv * dh), dtype).reshape(d, kv, dh),
         "wo": init_dense(gen, (h * dh, d), dtype).reshape(h, dh, d),
     }
+    if qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, gen.device)
+        p["k_norm"] = init_rmsnorm(dh, gen.device)
+    return p
 
 
 def init_kv_cache(batch: int, s_alloc: int, kv: int, dh: int, dtype,
@@ -81,23 +87,27 @@ def attention_apply(
     want_cache: bool = False,
     qk_norm: bool = False,
     theta: float = 10_000.0,
+    norm_eps: float = 1e-6,
     mrope_sections=None,
     kv_ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if window not in (None, 0) or kv_ctx is not None or qk_norm \
+    if window not in (None, 0) or kv_ctx is not None \
             or mrope_sections is not None:
         raise NotImplementedError(
-            "sliding-window caches, cross-attention, qk_norm and M-RoPE "
-            "are not ported yet")
+            "sliding-window caches, cross-attention and M-RoPE are not "
+            "ported yet")
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
-    q = apply_rope(_proj(x, p["wq"]), positions, theta)
-    k = apply_rope(_proj(x, p["wk"]), positions, theta)
-    v = _proj(x, p["wv"])
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q, norm_eps)
+        k = rmsnorm_apply(p["k_norm"], k, norm_eps)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
 
     new_cache = None
     if mode == "full":

@@ -1,8 +1,8 @@
 """Block layer: full causal self-attention + dense SwiGLU FFN, pre-norms.
 
 The only block kind ported so far is ``ATTN_FULL`` with a dense FFN (the
-llama family).  Sliding-window, encoder, recurrent and MoE blocks raise
-``NotImplementedError``.
+llama family, and qwen3 with its per-head q/k norm).  Sliding-window,
+encoder, recurrent and MoE blocks raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,11 +23,11 @@ def check_supported(rcfg: ResolvedConfig) -> None:
             f"{b.name}: only {ATTN_FULL!r} blocks are ported")
     if b.moe is not None or b.d_ff <= 0:
         raise NotImplementedError(f"{b.name}: only dense FFNs are ported")
-    if (b.qk_norm or b.mrope_sections is not None or b.embed_scale
+    if (b.mrope_sections is not None or b.embed_scale
             or b.frontend_stub is not None or b.encoder_layers):
         raise NotImplementedError(
-            f"{b.name}: qk_norm, M-RoPE, embed scaling, modality "
-            "frontends and encoders are not ported")
+            f"{b.name}: M-RoPE, embed scaling, modality frontends and "
+            "encoders are not ported")
 
 
 def init_block(gen: torch.Generator, rcfg: ResolvedConfig,
@@ -36,7 +36,8 @@ def init_block(gen: torch.Generator, rcfg: ResolvedConfig,
     return {
         "norm1": init_rmsnorm(d, gen.device),
         "attn": init_attention(gen, d, rcfg.padded_heads,
-                               rcfg.padded_kv_heads, rcfg.head_dim, dtype),
+                               rcfg.padded_kv_heads, rcfg.head_dim, dtype,
+                               qk_norm=rcfg.base.qk_norm),
         "norm2": init_rmsnorm(d, gen.device),
         "mlp": init_mlp(gen, d, rcfg.base.d_ff, dtype),
     }
@@ -71,7 +72,7 @@ def block_apply(
         p["attn"], h, mode=attn_mode, causal=True, positions=positions,
         cache=state, cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
         slots=slots, block_tables=block_tables, want_cache=True,
-        theta=b.rope_theta)
+        qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps)
     x = x + mix
     h2 = rmsnorm_apply(p["norm2"], x, b.norm_eps)
     return x + mlp_apply(p["mlp"], h2, b.act), new_state

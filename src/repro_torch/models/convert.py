@@ -5,9 +5,10 @@ The JAX ``LM`` stacks the ``R`` repetitions of its block pattern on a
 leading axis (``params["stages"][p]`` leaves are ``[R, ...]``) and runs
 the remaining ``tail`` layers unstacked; layer order is repetition-major:
 ``stages[0][0], stages[1][0], ..., stages[0][1], ..., tail[0], ...``.
-The port keeps one dict per layer in that order.  Arrays arrive as numpy
-(``jax.tree.map(np.asarray, tree)`` on the caller's side), so this module
-imports nothing of JAX.
+The port keeps one dict per layer in that order, with every leaf of the
+layer carried across (qwen3's ``q_norm``/``k_norm`` scales included).
+Arrays arrive as numpy (``jax.tree.map(np.asarray, tree)`` on the
+caller's side), so this module imports nothing of JAX.
 """
 from __future__ import annotations
 

@@ -8,7 +8,9 @@ Token inputs are seeded numpy.  Logits agree to f32 ``atol=rtol=1e-5``
 contents (post-RoPE keys, values) to the same tolerance through
 ``states_from_jax``.  The KV-window undo log is checked bitwise inside
 the port.  The JAX side runs ``CPU_TEST`` (naive attention) and
-``CPU_KERNEL_TEST`` (Pallas interpret, blocks of 16).
+``CPU_KERNEL_TEST`` (Pallas interpret, blocks of 16).  The reduced qwen3
+(per-head q/k RMS norm before RoPE) is held to the same tolerance on
+prefill, extend and decode, dense and paged.
 """
 import numpy as np
 import pytest
@@ -244,8 +246,91 @@ def test_unported_configs_raise():
         TLM(t_resolve(dataclasses.replace(cfg, block_pattern=(ATTN_LOCAL,)),
                       tp=1), device="cpu")
     with pytest.raises(NotImplementedError):
-        TLM(t_resolve(dataclasses.replace(cfg, qk_norm=True), tp=1),
-            device="cpu")
+        TLM(t_resolve(dataclasses.replace(cfg, mrope_sections=(4, 6, 6)),
+                      tp=1), device="cpu")
+
+
+def _qwen_rcfg():
+    return t_resolve(t_get_reduced("qwen3_1_7b", dtype="float32",
+                                   vocab_size=512, num_layers=2), tp=1)
+
+
+@pytest.fixture(scope="module")
+def qwen_pair():
+    """Reduced qwen3 (per-head q/k RMS norm): JAX LMs by runtime, JAX
+    params, port LM, converted port params."""
+    jax = pytest.importorskip("jax")
+    from repro.config import resolve
+    from repro.configs import get_reduced
+    from repro.models.model import LM
+    from repro.models.runtime import CPU_KERNEL_TEST, CPU_TEST
+    rcfg = resolve(get_reduced("qwen3_1_7b", dtype="float32",
+                               vocab_size=512, num_layers=2), tp=1)
+    jms = {"naive": LM(rcfg, CPU_TEST),
+           "pallas_interpret": LM(rcfg, CPU_KERNEL_TEST)}
+    jp = jms["naive"].init(jax.random.PRNGKey(2))
+    tm = TLM(_qwen_rcfg(), device="cpu")
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), tm.rcfg, "cpu")
+    return jms, jp, tm, tp
+
+
+def test_qwen3_params_carry_qk_norm(qwen_pair):
+    jms, jp, tm, tp = qwen_pair
+    assert tm.rcfg.base.qk_norm
+    for r in range(2):
+        for name in ("q_norm", "k_norm"):
+            np.testing.assert_array_equal(
+                tp["layers"][r]["attn"][name]["scale"].numpy(),
+                np.asarray(jp["stages"][0]["attn"][name]["scale"])[r])
+    own = tm.init(seed=2)["layers"][0]["attn"]
+    assert own["q_norm"]["scale"].shape == (tm.rcfg.head_dim,)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("impl", ["naive", "pallas_interpret"])
+def test_qwen3_qk_norm_prefill_extend_decode_match_jax(qwen_pair, impl,
+                                                       paged):
+    """qk-norm on every mode: prefill (dense) or a first extend into an
+    arena (paged), a fraction extend, then decode steps."""
+    import jax.numpy as jnp
+    jms, jp, tm, tp = qwen_pair
+    jm = jms[impl]
+    toks = _tok(11, (3, 32))
+    kv0 = np.asarray([32, 29, 17], np.int32)
+    pk = {}
+    if paged:
+        slots = np.asarray([2, 0, 3], np.int32)
+        js, ts = jm.init_states(5, 96), tm.init_states(5, 96)
+        pk = dict(j=dict(slots=jnp.asarray(slots)),
+                  t=dict(slots=torch.from_numpy(slots)))
+        jl, js = jm.extend(jp, {"tokens": jnp.asarray(toks)}, js,
+                           q_offset=0, kv_len=jnp.asarray(kv0), **pk["j"])
+        tl, ts = tm.extend(tp, {"tokens": torch.from_numpy(toks)}, ts,
+                           q_offset=0, kv_len=torch.from_numpy(kv0),
+                           **pk["t"])
+    else:
+        pk = dict(j={}, t={})
+        jl, js = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, s_alloc=96)
+        tl, ts = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                            s_alloc=96)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    more = _tok(12, (3, 16))
+    kv_len = np.asarray([48, 40, 33], np.int32)
+    jl, js = jm.extend(jp, {"tokens": jnp.asarray(more)}, js, q_offset=32,
+                       kv_len=jnp.asarray(kv_len), **pk["j"])
+    tl, ts = tm.extend(tp, {"tokens": torch.from_numpy(more)}, ts,
+                       q_offset=32, kv_len=torch.from_numpy(kv_len),
+                       **pk["t"])
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    for step in range(2):
+        pos = kv_len + step
+        tok = _tok(13 + step, (3,))
+        jl, js = jm.decode_step(jp, jnp.asarray(tok), js, jnp.asarray(pos),
+                                **pk["j"])
+        tl, ts = tm.decode_step(tp, torch.from_numpy(tok), ts,
+                                torch.from_numpy(pos), **pk["t"])
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    _states_close(js, ts, tm.rcfg)
 
 
 @pytest.mark.cuda

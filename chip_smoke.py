@@ -8,7 +8,9 @@ non-zero without printing a result:
 
 1. device   the card's name and power limit as ``nvidia-smi`` reports them;
             the hand-written kernels are built from ``csrc/`` (one ``nvcc``
-            per source, all at once) and their register use is printed.
+            per source, all at once) and their registers and spills are
+            printed (decode per head_dim; head_dim 64 and 128 must not
+            spill).
 2. kernels  every attention entry point at main-path shapes (B=8, bf16
             arena, buckets 256..1024, slots with the scratch sentinel
             repeated, block tables) twice: at llama3.2-1b's heads (32 query
@@ -17,7 +19,10 @@ non-zero without printing a result:
             paged == dense bitwise, and CUDA-event times of kernel, plain
             version and ``F.scaled_dot_product_attention`` over the
             gathered rows (a yardstick only; the port never calls it),
-            beside the bound.
+            beside the bound.  Decode also at the split-KV chunk edges
+            (kv_len 0, 1, C-1, C, C+1, 2C, S, S+5), and bitwise: two calls
+            agree, and each sequence alone (the other rows the scratch
+            sentinel) equals its row of the batch.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +138,23 @@ class Timer:
         return total / reps
 
 
+def decode_resources(res) -> None:
+    """Print the decode kernels' registers and spills per head_dim; the
+    main path's head_dims (64, 128) must not spill."""
+    by: dict = {}
+    for r in res:
+        kind = "partial" if "decode_partial_kernel" in r["kernel"] else \
+            "combine"
+        dh = int(re.search(r"Li(\d+)E", r["kernel"]).group(1))
+        by.setdefault((dh, kind), []).append(r)
+    for (dh, kind), rs in sorted(by.items()):
+        spill = max(r["spill_stores"] + r["spill_loads"] for r in rs)
+        print(f"build: decode_attention {kind} Dh {dh}: registers "
+              f"{sorted(r['registers'] for r in rs)} over {len(rs)} "
+              f"instantiations, spill bytes max {spill}")
+        assert dh not in (64, 128) or spill == 0, (dh, kind, rs)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -194,6 +217,37 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
                                     ops._gather_block_rows(va, bt, 64),
                                     kv_len)
     assert torch.equal(bt_out, bt_dense), "block-table decode != dense"
+    d_err = max(max_err(out, plain), max_err(bt_out, bt_plain))
+    # split-KV chunk edges (S = 1088 is not a chunk multiple), then for
+    # both kv_len sets: a second call bitwise equal, and each sequence
+    # alone (the other rows the scratch sentinel) bitwise equal to the batch
+    C = dec.KV_CHUNK
+    edges = torch.tensor([0, 1, C - 1, C, C + 1, 2 * C, S, S + 5],
+                         dtype=torch.int32, device=dev)
+    e_out = ops.arena_decode_attention(q, ka, va, slots, edges)
+    e_plain = dec.paged_decode_attention_plain(q, ka, va, slots, edges)
+    torch.testing.assert_close(e_out.float(), e_plain.float(), **DECODE_TOL)
+    e_bt = ops.arena_decode_attention(q, ka, va, slots, edges,
+                                      block_tables=bt)
+    e_bt_plain = dec.paged_decode_attention_plain(
+        q, ka, va, slots, edges, block_tables=bt, table_block=64)
+    torch.testing.assert_close(e_bt.float(), e_bt_plain.float(), **DECODE_TOL)
+    assert torch.equal(e_out, ops.decode_attention(q, kg, vg, edges)), \
+        "paged decode != dense decode at the chunk edges"
+    assert torch.equal(e_out[0], torch.zeros_like(e_out[0])), "kv_len 0"
+    d_err = max(d_err, max_err(e_out, e_plain), max_err(e_bt, e_bt_plain))
+    for kl, full in ((kv_len, out), (edges, e_out)):
+        again = ops.arena_decode_attention(q, ka, va, slots, kl)
+        assert torch.equal(again, full), "decode: two calls differ"
+        for b in range(B):
+            alone = torch.full_like(slots, N - 1)
+            alone[b] = slots[b]
+            o_b = ops.arena_decode_attention(q, ka, va, alone, kl)
+            assert torch.equal(o_b[b], full[b]), f"decode: sequence {b} " \
+                "alone differs from the batch"
+    print(f"kernels [{label}]: decode at chunk-edge kv_len "
+          f"{edges.tolist()} within tol; two calls and each sequence alone "
+          f"bitwise equal to the batch (KV_CHUNK {C})")
 
     keys = float(kv_len.sum())
     d_bytes = keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2 + 2 * B * 4
@@ -208,7 +262,7 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
         name="paged_decode_attention", source="src/repro_torch/kernels/"
         "csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:161",
-        max_abs_err=max_err(out, plain),
+        max_abs_err=d_err,
         ms=timer.ms(lambda: ops.arena_decode_attention(q, ka, va, slots,
                                                        kv_len)),
         plain_ms=timer.ms(lambda: dec.paged_decode_attention_plain(
@@ -614,7 +668,7 @@ def _device_kernels(prof):
 
 
 def _kernel_class(name: str) -> str:
-    if "decode_attention_kernel" in name:
+    if "decode_partial_kernel" in name or "decode_combine_kernel" in name:
         return "decode attention (ours)"
     if "flash_attention_kernel" in name:
         return "flash attention (ours)"
@@ -710,10 +764,11 @@ def main() -> int:
     print(f"build: {len(_build.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
-        regs = sorted({ln.split("Used ")[1].split(",")[0]
-                       for ln in _build.log_path(name).read_text().splitlines()
-                       if "Used " in ln})
-        print(f"build: {name}: {', '.join(regs)}")
+        res = _build.resources(_build.log_path(name))
+        print(f"build: {name}: {len(res)} kernels, registers "
+              f"{sorted({r['registers'] for r in res})}, spill bytes (stores "
+              f"+ loads) {sorted({r['spill_stores'] + r['spill_loads'] for r in res})}")
+    decode_resources(_build.resources(_build.log_path("decode_attention")))
     timer = Timer(dev)
     rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
     kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")

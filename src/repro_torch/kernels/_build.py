@@ -8,7 +8,7 @@ sources, so an edited kernel is rebuilt and a stale one never loads.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them; ``library(name)`` builds everything missing the first time any
 kernel is needed.  The compiler's resource report (``-Xptxas -v``) is kept
-beside each library as ``<name>.log``.
+beside each library as ``<name>.log`` (``resources`` parses it).
 
 Nothing here runs at import time: this module is imported on machines that
 have no CUDA toolkit, where only the plain PyTorch versions are used.
@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,10 +44,12 @@ _F = ctypes.c_float
 # C signatures (argument order of the extern "C" entry points)
 SIGNATURES: Dict[str, List] = {
     "repro_decode_attention": [
-        _P, _P, _P, _P, _P, _L, _I, _P,     # q k v o rows rows_stride tb kv_len
+        _P, _P, _P, _P, _P,                 # q k v o part (f32 workspace)
+        _P, _L, _I, _P,                     # rows rows_stride tb kv_len
         _I, _I, _I, _I, _I,                 # B Hq Hkv S head_dim
         _L, _L, _L, _L, _L, _L,             # k strides, v strides
         _F, _I, _I, _P],                    # scale dtype_q dtype_kv stream
+    "repro_decode_kv_chunk": [],
     "repro_flash_attention": [
         _P, _P, _P, _P, _P, _L, _I, _P,     # q k v o rows rows_stride tb kv_len
         _I, _I, _I, _I, _I, _I,             # B Sq Hq Hkv kv_valid head_dim
@@ -115,6 +118,29 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: lib_path(n) for n in names}
+
+
+def resources(log: Path) -> List[Dict]:
+    """Per kernel of a ``-Xptxas -v`` report: name, registers, spill
+    store and load bytes."""
+    out: List[Dict] = []
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            out.append(dict(kernel=m.group(1), registers=0, spill_stores=0,
+                            spill_loads=0))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

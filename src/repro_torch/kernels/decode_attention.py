@@ -17,10 +17,26 @@ They replace ``decode_attention_pallas`` and
 tensors only and raise otherwise; ``*_plain`` are the plain PyTorch
 versions of the same functions, which ``kernels.ops`` uses for CPU tensors
 and ``chip_smoke.py`` holds the kernels against on the card.
-``LAUNCHES`` counts kernel launches per entry point.
+``LAUNCHES`` counts calls per entry point (each call is two kernel
+launches on the current stream, counted once).
+
+Split-KV schedule: the key axis is cut into chunks of ``KV_CHUNK`` keys
+(a compile-time constant of the CUDA source, the same for every call).
+The first kernel writes, for every (b, query head, chunk) whose chunk
+starts below ``n = min(kv_len[b], S)``, the chunk's unnormalized
+``acc[Dh]``, its running max ``m`` and denominator ``l`` into an f32
+workspace ``[B, Hq, ceil(S / KV_CHUNK), Dh + 2]`` that the wrapper
+allocates with ``torch.empty``.  The second merges chunks
+``0 .. ceil(n / KV_CHUNK) - 1`` in that order (log-sum-exp rule, no
+atomics) and writes ``acc / max(l, 1e-30)`` in q's dtype.  The chunks
+merged depend on ``n`` alone, so the output is deterministic, the same
+for the paged and dense entries, and independent of the rest of the
+batch.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -30,7 +46,18 @@ from . import _build, ref
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0}
 
+KV_CHUNK = 128              # keys per split-KV chunk; == kKvChunk in the .cu
 _SLOT_BLOCK = 1 << 30       # table granularity meaning "one row per sequence"
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.library("decode_attention")
+    if lib.repro_decode_kv_chunk() != KV_CHUNK:
+        raise RuntimeError("decode_attention: the CUDA library's chunk "
+                           f"{lib.repro_decode_kv_chunk()} != KV_CHUNK "
+                           f"{KV_CHUNK}")
+    return lib
 
 
 def _check_common(q, k, v, kv_len, where: str) -> None:
@@ -52,6 +79,12 @@ def _check_common(q, k, v, kv_len, where: str) -> None:
                          "unsupported")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{where}: cache head_dim axis must be contiguous")
+    # the kernel reads each key's row in 16-byte pieces
+    for t in (k, v):
+        if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                    for i in range(3)):
+            raise ValueError(f"{where}: cache base and row/seq/head strides "
+                             "must be 16-byte aligned")
     if kv_len.dtype != torch.int32 or kv_len.shape != (B,):
         raise ValueError(f"{where}: kv_len must be int32 [B]")
 
@@ -62,10 +95,12 @@ def _launch(q, k, v, rows, rows_stride: int, table_block: int, kv_len,
     _, S, Hkv, _ = k.shape
     scale = sm_scale if sm_scale is not None else 1.0 / (Dh ** 0.5)
     out = torch.empty_like(q)
-    lib = _build.library("decode_attention")
+    part = torch.empty((B, Hq, -(-S // KV_CHUNK), Dh + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.repro_decode_attention(
+        err = _library().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            part.data_ptr(),
             None if rows is None else rows.data_ptr(), rows_stride,
             table_block, kv_len.data_ptr(), B, Hq, Hkv, S, Dh,
             k.stride(0), k.stride(1), k.stride(2),

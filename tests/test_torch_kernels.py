@@ -11,9 +11,11 @@ frameworks sum in different orders before rounding).  Paged == gather is
 asserted BITWISE inside the port.
 
 CUDA part (``@pytest.mark.cuda``, skipped without a card): each
-hand-written kernel against its plain version on the card, the paged ==
-dense bitwise contract on the card, and the launch counters.  JAX is
-imported lazily so the CUDA part runs where JAX is not installed.
+hand-written kernel against its plain version on the card (decode also at
+the split-KV chunk edges), the paged == dense bitwise contract on the
+card, decode's determinism and batch invariance, and the launch
+counters.  JAX is imported lazily so the CUDA part runs where JAX is not
+installed.
 """
 import numpy as np
 import pytest
@@ -293,6 +295,64 @@ def test_paged_decode_bf16_arena_tolerance(jx):
     _close(out16, ref16)
 
 
+def _chunked_decode(q, k, v, kv_len, chunk):
+    """The CUDA kernel's split-KV schedule in plain torch (f32): per chunk
+    of ``chunk`` keys below n = min(kv_len, S), the chunk's max m, sum l
+    and unnormalized acc; then chunks 0 .. ceil(n / chunk) - 1 merged in
+    order by the log-sum-exp rule and divided by max(l, 1e-30)."""
+    B, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qs = q.float() / Dh ** 0.5
+    out = torch.zeros(B, Hq, Dh)
+    for b in range(B):
+        n = min(int(kv_len[b]), S)
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            kc = k[b, c0:c1].float().repeat_interleave(g, dim=1)
+            vc = v[b, c0:c1].float().repeat_interleave(g, dim=1)
+            s = torch.einsum("hd,khd->hk", qs[b], kc)
+            m = s.amax(dim=1)
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(dim=1), torch.einsum("hk,khd->hd", p, vc)))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l = torch.zeros(Hq)
+        acc = torch.zeros(Hq, Dh)
+        for m, lc, ac in parts:
+            f = torch.exp(m - mx)
+            l = l + lc * f
+            acc = acc + ac * f[:, None]
+        out[b] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,Dh", [
+    (264, 4, 2, 16),      # S not a chunk multiple
+    (256, 8, 2, 32),      # S a chunk multiple: S + 5 and S coincide
+])
+def test_decode_chunk_merge_matches_jax(jx, S, Hq, Hkv, Dh):
+    """The split-KV merge rule at the chunk-edge kv_lens (0, 1, C-1, C,
+    C+1, 2C, S, S+5) against the JAX package's decode, f32."""
+    jnp, jops = jx
+    kv_len = _edge_lens(S)
+    B = len(kv_len)
+    q = _normal(80, (B, Hq, Dh))
+    _, k, v = _qkv(81, B, 1, S, Hq, Hkv, Dh)
+    out = _chunked_decode(_t(q), _t(k), _t(v), kv_len, tdec.KV_CHUNK)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))      # kv_len 0
+    _close(out, tops.decode_attention(_t(q), _t(k), _t(v), _i(kv_len)))
+    for impl in ("pallas_interpret", "naive"):
+        # kv_len clamped to S for JAX: its Pallas path pads S to a block
+        # multiple, and a kv_len past S would unmask the padding
+        ref = jops.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(np.minimum(kv_len, S)), impl=impl, block_kv=64)
+        _close(out, ref)
+
+
 # ---------------------------------------------------------------------------
 # Paged flash extend (entry point 3) against JAX
 # ---------------------------------------------------------------------------
@@ -420,6 +480,30 @@ def test_row_hooks_see_slots_and_block_tables():
         sanitize.remove_row_hook(hid)
 
 
+def test_ptxas_report_parsing(tmp_path):
+    """The build's ``-Xptxas -v`` report is read per kernel (registers and
+    spill bytes), as ``chip_smoke.py`` prints and checks them."""
+    from repro_torch.kernels import _build
+    log = tmp_path / "k.log"
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aILi64EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aILi64EEv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 32 registers\n")
+    assert _build.resources(log) == [
+        dict(kernel="_Z1aILi64EEv", registers=96, spill_stores=8,
+             spill_loads=4),
+        dict(kernel="_Z1bv", registers=32, spill_stores=0, spill_loads=0)]
+
+
 def test_cuda_wrappers_reject_cpu_tensors():
     """The kernel wrappers never run the plain version: CPU tensors raise
     (only ``ops`` routes CPU tensors to the plain path)."""
@@ -446,15 +530,27 @@ def _dev(a, dtype, dev):
     return torch.from_numpy(np.asarray(a)).to(dev, dtype)
 
 
+def _edge_lens(S):
+    """kv_len at the split-KV chunk edges, past S included."""
+    C = tdec.KV_CHUNK
+    return np.asarray([0, 1, C - 1, C, C + 1, 2 * C, S, S + 5], np.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,tb", [
-    (8, 1088, 32, 8, 64, None),     # main path: bucket 1024 + op reserve
-    (3, 72, 4, 2, 16, 8),           # ragged cache, table block 8
-    (5, 200, 8, 1, 128, 40),        # Dh 128, table block 40
-    (2, 96, 6, 3, 32, 96),          # one table block per row
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,tb,edges", [
+    (8, 1088, 32, 8, 64, None, False),  # main path: bucket 1024 + reserve
+    (3, 72, 4, 2, 16, 8, False),        # ragged cache, table block 8
+    (5, 200, 8, 1, 128, 40, False),     # Dh 128, table block 40
+    (2, 96, 6, 3, 32, 96, False),       # one table block per row
+    # kv_len at the chunk edges: S not a chunk multiple (llama heads),
+    # Dh 128 with table block 40, S a chunk multiple (qwen3 heads)
+    (8, 1088, 32, 8, 64, None, True),
+    (8, 1000, 8, 1, 128, 40, True),
+    (8, 512, 16, 8, 128, None, True),
 ])
-def test_cuda_decode_kernels_match_plain(cuda, dtype, B, S, Hq, Hkv, Dh, tb):
+def test_cuda_decode_kernels_match_plain(cuda, dtype, B, S, Hq, Hkv, Dh, tb,
+                                         edges):
     N = B + 3
     q = _dev(_normal(50, (B, Hq, Dh)), dtype, cuda)
     ka, va = (_dev(a, dtype, cuda) for a in _arena(51, N, S, Hkv, Dh))
@@ -463,6 +559,8 @@ def test_cuda_decode_kernels_match_plain(cuda, dtype, B, S, Hq, Hkv, Dh, tb):
     slots[-1] = N - 1                                  # scratch sentinel
     kv_len = rng.integers(0, S + 1, B).astype(np.int32)
     kv_len[0] = S
+    if edges:
+        kv_len = _edge_lens(S)
     s, kl = _dev(slots, torch.int32, cuda), _dev(kv_len, torch.int32, cuda)
     bt = None
     if tb is not None:
@@ -481,6 +579,38 @@ def test_cuda_decode_kernels_match_plain(cuda, dtype, B, S, Hq, Hkv, Dh, tb):
         before["paged_decode_attention"] + 1
     assert tdec.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,Dh", [(32, 8, 64), (16, 8, 128)])
+def test_cuda_decode_deterministic_and_batch_invariant(cuda, Hq, Hkv, Dh):
+    """Two calls give bitwise equal outputs, and sequence b's output is
+    bitwise the same alone (the other rows the scratch sentinel) as in the
+    full batch, at the chunk-edge kv_lens and for both entry points."""
+    B, S = 8, 1088
+    N = B + 3
+    q = _dev(_normal(70, (B, Hq, Dh)), torch.bfloat16, cuda)
+    ka, va = (_dev(a, torch.bfloat16, cuda)
+              for a in _arena(71, N, S, Hkv, Dh))
+    slots = _dev(np.random.default_rng(72).permutation(N - 1)[:B]
+                 .astype(np.int32), torch.int32, cuda)
+    kl = _dev(_edge_lens(S), torch.int32, cuda)
+    full = tops.arena_decode_attention(q, ka, va, slots, kl)
+    assert torch.equal(tops.arena_decode_attention(q, ka, va, slots, kl),
+                       full)
+    kg, vg = ka[slots.long()], va[slots.long()]
+    dense = tops.decode_attention(q, kg, vg, kl)
+    assert torch.equal(tops.decode_attention(q, kg, vg, kl), dense)
+    assert torch.equal(dense, full)
+    for b in range(B):
+        alone = torch.full_like(slots, N - 1)
+        alone[b] = slots[b]
+        assert torch.equal(
+            tops.arena_decode_attention(q, ka, va, alone, kl)[b], full[b])
+        # the dense entry, the other rows' caches zeroed
+        kz, vz = torch.zeros_like(kg), torch.zeros_like(vg)
+        kz[b], vz[b] = kg[b], vg[b]
+        assert torch.equal(tops.decode_attention(q, kz, vz, kl)[b], full[b])
 
 
 @pytest.mark.cuda

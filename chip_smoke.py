@@ -9,8 +9,9 @@ non-zero without printing a result:
 1. device   the card's name and power limit as ``nvidia-smi`` reports them;
             the hand-written kernels are built from ``csrc/`` (one ``nvcc``
             per source, all at once) and their registers and spills are
-            printed (decode per head_dim; head_dim 64 and 128 must not
-            spill).
+            printed (decode and flash attention per kernel and head_dim;
+            at head_dim 64 and 128 the decode kernels and the extend
+            tensor-core body must not spill).
 2. kernels  every attention entry point at main-path shapes (B=8, bf16
             arena, buckets 256..1024, slots with the scratch sentinel
             repeated, block tables) twice: at llama3.2-1b's heads (32 query
@@ -22,7 +23,8 @@ non-zero without printing a result:
             beside the bound.  Decode also at the split-KV chunk edges
             (kv_len 0, 1, C-1, C, C+1, 2C, S, S+5), and bitwise: two calls
             agree, and each sequence alone (the other rows the scratch
-            sentinel) equals its row of the batch.
+            sentinel) equals its row of the batch; extend likewise, for
+            the paged and the dense entry.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -78,9 +80,13 @@ PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 # of the output (both sides round f32 to bf16, so a value near a rounding
 # edge may land one ulp apart).  Decode accumulates in f32 exactly as its
 # plain version does (measured max error 2.4e-7 on the H100), so atol is
-# 1e-4; extend rounds the softmax weights to bf16 for the P.V product
-# (measured 2.0e-3), so atol is 4e-3, two bf16 ulps at 0.25-0.5.  A mask
-# off by a few keys moves an output by ~|v|/400 per key and fails both.
+# 1e-4.  Extend's tensor-core body multiplies bf16 scores and rounds the
+# softmax weights to bf16 for the P.V product, where the plain version
+# keeps them in f32: measured max error 3.9e-3 at llama3.2-1b's heads and
+# 7.8e-3 at qwen3-1.7b's on the H100, one bf16 ulp of outputs in [0.5, 1)
+# and [1, 2), inside atol 4e-3 (two bf16 ulps at 0.25-0.5) plus the rtol
+# term.  A mask off by a few keys moves an output by ~|v|/400 per key and
+# fails both.
 DECODE_TOL = dict(atol=1e-4, rtol=2 ** -7)
 EXTEND_TOL = dict(atol=4e-3, rtol=2 ** -7)
 # relevance_score against its plain version, f32 scores in (0, 1): both
@@ -138,21 +144,23 @@ class Timer:
         return total / reps
 
 
-def decode_resources(res) -> None:
-    """Print the decode kernels' registers and spills per head_dim; the
-    main path's head_dims (64, 128) must not spill."""
+def head_dim_resources(source: str, res, kinds: dict,
+                       no_spill: tuple) -> None:
+    """Print a source's registers and spills per kernel (``kinds`` maps a
+    symbol fragment to its label) and head_dim; the kernels labelled in
+    ``no_spill`` must not spill at the main path's head_dims (64, 128)."""
     by: dict = {}
     for r in res:
-        kind = "partial" if "decode_partial_kernel" in r["kernel"] else \
-            "combine"
+        kind = next(k for sym, k in kinds.items() if sym in r["kernel"])
         dh = int(re.search(r"Li(\d+)E", r["kernel"]).group(1))
         by.setdefault((dh, kind), []).append(r)
     for (dh, kind), rs in sorted(by.items()):
         spill = max(r["spill_stores"] + r["spill_loads"] for r in rs)
-        print(f"build: decode_attention {kind} Dh {dh}: registers "
+        print(f"build: {source} {kind} Dh {dh}: registers "
               f"{sorted(r['registers'] for r in rs)} over {len(rs)} "
               f"instantiations, spill bytes max {spill}")
-        assert dh not in (64, 128) or spill == 0, (dh, kind, rs)
+        assert kind not in no_spill or dh not in (64, 128) or spill == 0, \
+            (source, dh, kind, rs)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -300,6 +308,25 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
         q, ops._gather_block_rows(ka, bt, 64)[:, :kv_valid],
         ops._gather_block_rows(va, bt, 64)[:, :kv_valid], **dkw)
     assert torch.equal(bt_out, bt_dense), "block-table extend != dense"
+    # a second call bitwise equal, and each sequence alone (the other rows
+    # the scratch sentinel, or zeroed caches for the dense entry) bitwise
+    # equal to its row of the batch
+    assert torch.equal(ops.attention_paged(q, ka, va, slots, **kw), out), \
+        "extend: two calls differ"
+    assert torch.equal(ops.attention(q, kg, vg, **dkw), dense), \
+        "dense extend: two calls differ"
+    for b in range(B):
+        alone = torch.full_like(slots, N - 1)
+        alone[b] = slots[b]
+        o_b = ops.attention_paged(q, ka, va, alone, **kw)
+        assert torch.equal(o_b[b], out[b]), f"extend: sequence {b} alone " \
+            "differs from the batch"
+        kz, vz = torch.zeros_like(kg), torch.zeros_like(vg)
+        kz[b], vz[b] = kg[b], vg[b]
+        assert torch.equal(ops.attention(q, kz, vz, **dkw)[b], out[b]), \
+            f"dense extend: sequence {b} alone differs from the batch"
+    print(f"kernels [{label}]: extend two calls and each sequence alone "
+          "bitwise equal to the batch (paged and dense)")
     # prefill into the arena (q_offset 0) and a ragged chunk
     for sq, off, kvv in ((256, 0, 256), (77, 300, 377)):
         qq = rand(B, sq, Hq, Dh)
@@ -670,7 +697,8 @@ def _device_kernels(prof):
 def _kernel_class(name: str) -> str:
     if "decode_partial_kernel" in name or "decode_combine_kernel" in name:
         return "decode attention (ours)"
-    if "flash_attention_kernel" in name:
+    if "flash_attention_tc_kernel" in name \
+            or "flash_attention_kernel" in name:
         return "flash attention (ours)"
     if any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma",
                                         "cutlass", "splitk")):
@@ -768,7 +796,16 @@ def main() -> int:
         print(f"build: {name}: {len(res)} kernels, registers "
               f"{sorted({r['registers'] for r in res})}, spill bytes (stores "
               f"+ loads) {sorted({r['spill_stores'] + r['spill_loads'] for r in res})}")
-    decode_resources(_build.resources(_build.log_path("decode_attention")))
+    head_dim_resources(
+        "decode_attention",
+        _build.resources(_build.log_path("decode_attention")),
+        {"decode_partial_kernel": "partial",
+         "decode_combine_kernel": "combine"}, ("partial", "combine"))
+    head_dim_resources(
+        "flash_attention",
+        _build.resources(_build.log_path("flash_attention")),
+        {"flash_attention_tc_kernel": "tensor-core",
+         "flash_attention_kernel": "fma"}, ("tensor-core",))
     timer = Timer(dev)
     rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
     kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")

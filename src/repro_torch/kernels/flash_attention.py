@@ -18,6 +18,11 @@ per-row ``kv_len``, GQA.  They replace ``flash_attention_pallas`` and
 ``paged_flash_attention_pallas`` of the JAX package.  Both take CUDA
 tensors only and raise otherwise; ``*_plain`` are the plain PyTorch
 versions.  ``LAUNCHES`` counts kernel launches per entry point.
+
+bf16 q with a bf16 cache runs the tensor-core body (bf16 products, the
+softmax weights rounded to bf16 for P.V, f32 accumulation), which needs
+16-byte aligned q/k/v data and strides that are multiples of 8 elements;
+an f32 q or cache runs the f32 FMA body.
 """
 from __future__ import annotations
 
@@ -54,6 +59,13 @@ def _launch(q, k, v, rows, rows_stride: int, table_block: int, *,
                          "unsupported")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{where}: head_dim axes must be contiguous")
+    if q.dtype == k.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape)
+                    if n > 1) for t in (q, k, v)):
+        # the tensor-core body copies 16-byte pieces of q/k/v rows
+        raise ValueError(f"{where}: bf16 q/k/v need 16-byte aligned data "
+                         "and strides that are multiples of 8 elements")
     if not 0 < kv_valid <= k.shape[1]:
         raise ValueError(f"{where}: kv_valid {kv_valid} outside "
                          f"(0, {k.shape[1]}]")

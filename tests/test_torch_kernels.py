@@ -10,12 +10,18 @@ sides round their output to bf16, one ulp is ~4e-3 relative and the two
 frameworks sum in different orders before rounding).  Paged == gather is
 asserted BITWISE inside the port.
 
+The rounding of the extend kernel's tensor-core body (bf16 scores and
+softmax weights, 64-key online softmax) is emulated on the CPU and held
+against the JAX reference within ``EXTEND_TOL``, the tolerance that
+``chip_smoke.py`` holds the kernel to.
+
 CUDA part (``@pytest.mark.cuda``, skipped without a card): each
 hand-written kernel against its plain version on the card (decode also at
-the split-KV chunk edges), the paged == dense bitwise contract on the
-card, decode's determinism and batch invariance, and the launch
-counters.  JAX is imported lazily so the CUDA part runs where JAX is not
-installed.
+the split-KV chunk edges, extend at ragged shapes, every head_dim and
+group size, and block tables that cross a key tile), the paged == dense
+bitwise contract on the card, determinism and batch invariance of both
+kernel pairs, and the launch counters.  JAX is imported lazily so the
+CUDA part runs where JAX is not installed.
 """
 import numpy as np
 import pytest
@@ -28,6 +34,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)
+# bf16 extend outputs: two bf16 ulps at 0.25-0.5 plus one output ulp
+# relative (the tolerance of chip_smoke.py's extend rows)
+EXTEND_TOL = dict(atol=4e-3, rtol=2 ** -7)
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +169,64 @@ def test_flash_attention_fully_masked_rows_are_zero(jx):
                          impl="pallas_interpret", block_q=16, block_kv=16,
                          **kw)
     _close(out, ref)
+
+
+def _tc_body_emulation(q, k, v, *, causal, window, q_offset, kv_len):
+    """The extend kernel's tensor-core body, in PyTorch on the CPU: bf16
+    q/k/v, S = Q K^T in f32 scaled by scale * log2(e), an online softmax
+    over 64-key tiles with exp2, the weights rounded to bf16 before P.V,
+    the row sums from the f32 weights, and one rounding of
+    acc / max(l, 1e-30) to bf16."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = Dh ** -0.5 * np.log2(np.e)
+    qf = q.float().transpose(1, 2)                        # [B, Hq, Sq, Dh]
+    kf = k.float().repeat_interleave(g, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, Dh))
+    for k0 in range(0, Skv, 64):
+        kpos = torch.arange(k0, min(k0 + 64, Skv))[None]
+        ok = kpos < kv_len.long()[:, None, None, None]
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+                        * scale, neg)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - torch.where(mx == neg, 0.0, mx))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        m = mx
+    return (acc * (1.0 / l.clamp_min(1e-30))).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("B,Sq,q_off,Skv,Hq,Hkv,Dh,causal,window", [
+    (3, 77, 63, 140, 4, 2, 64, True, None),     # ragged, 3 key tiles
+    (2, 15, 300, 315, 8, 2, 128, True, None),   # deep offset, Dh 128, g 4
+    (2, 130, 0, 130, 8, 4, 32, False, 24),      # bidirectional window
+    (2, 1, 0, 1, 4, 4, 16, True, None),         # one query, one key
+])
+def test_tc_body_rounding_within_extend_tol(jx, B, Sq, q_off, Skv, Hq, Hkv,
+                                            Dh, causal, window):
+    """The tensor-core body's rounding reaches EXTEND_TOL against the JAX
+    reference in f32 on the same bf16 inputs."""
+    jnp, jops = jx
+    q, k, v = (_t(a).bfloat16() for a in _qkv(90, B, Sq, Skv, Hq, Hkv, Dh))
+    kv_len = np.random.default_rng(91).integers(1, Skv + 1, B).astype(
+        np.int32)
+    kv_len[0] = Skv
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    out = _tc_body_emulation(q, k, v, kv_len=_i(kv_len), **kw)
+    ref = jops.attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+                         kv_len=jnp.asarray(kv_len), impl="naive", **kw)
+    _close(out, ref, EXTEND_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -614,22 +681,50 @@ def test_cuda_decode_deterministic_and_batch_invariant(cuda, Hq, Hkv, Dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,q_off,kv_valid,S_alloc,Hq,Hkv,Dh,causal,"
-                         "window,tb", [
-    (8, 256, 0, 256, 320, 32, 8, 64, True, None, None),   # main path
-    (8, 128, 128, 256, 320, 32, 8, 64, True, None, 64),   # extension
-    (2, 37, 50, 87, 116, 4, 2, 16, True, None, 29),       # ragged
-    (3, 64, 0, 64, 64, 8, 2, 32, False, 24, None),        # window, bidir
-    (1, 70, 130, 200, 200, 4, 4, 128, True, 33, 100),     # window + Dh 128
-])
-def test_cuda_flash_kernels_match_plain(cuda, dtype, B, Sq, q_off, kv_valid,
-                                        S_alloc, Hq, Hkv, Dh, causal, window,
-                                        tb):
+@pytest.mark.parametrize("Hq,Hkv,Dh", [(32, 8, 64), (16, 8, 128)])
+def test_cuda_extend_deterministic_and_batch_invariant(cuda, Hq, Hkv, Dh):
+    """Extend: two calls give bitwise equal outputs, and sequence b's
+    output is bitwise the same alone (the other rows the scratch sentinel,
+    or zeroed caches for the dense entry) as in the full batch, for both
+    entry points at the serving shape (384 queries at offset 128)."""
+    B, Sq, q_off, kv_valid, S_alloc = 8, 384, 128, 512, 576
+    N = B + 3
+    q = _dev(_normal(73, (B, Sq, Hq, Dh)), torch.bfloat16, cuda)
+    ka, va = (_dev(a, torch.bfloat16, cuda)
+              for a in _arena(74, N, S_alloc, Hkv, Dh))
+    slots = _dev(np.random.default_rng(75).permutation(N - 1)[:B]
+                 .astype(np.int32), torch.int32, cuda)
+    kl = _dev(np.asarray([512, 480, 400, 300, 200, 129, 1, 0], np.int32),
+              torch.int32, cuda)
+    kw = dict(q_offset=q_off, kv_len=kl)
+    full = tops.attention_paged(q, ka, va, slots, kv_valid=kv_valid, **kw)
+    assert torch.equal(
+        tops.attention_paged(q, ka, va, slots, kv_valid=kv_valid, **kw), full)
+    kg = ka[slots.long()][:, :kv_valid]
+    vg = va[slots.long()][:, :kv_valid]
+    dense = tops.attention(q, kg, vg, **kw)
+    assert torch.equal(tops.attention(q, kg, vg, **kw), dense)
+    assert torch.equal(dense, full)
+    assert torch.equal(full[-1], torch.zeros_like(full[-1]))   # kv_len 0
+    for b in range(B):
+        alone = torch.full_like(slots, N - 1)
+        alone[b] = slots[b]
+        assert torch.equal(tops.attention_paged(
+            q, ka, va, alone, kv_valid=kv_valid, **kw)[b], full[b])
+        kz, vz = torch.zeros_like(kg), torch.zeros_like(vg)
+        kz[b], vz[b] = kg[b], vg[b]
+        assert torch.equal(tops.attention(q, kz, vz, **kw)[b], full[b])
+
+
+def _extend_case(cuda, dtype, B, Sq, q_off, kv_valid, S_alloc, Hq, Hkv, Dh,
+                 causal, window, tb, seed):
+    """Paged extend against its plain version; returns (out, plain) after
+    asserting paged == dense bitwise."""
     N = B + 2
-    q = _dev(_normal(60, (B, Sq, Hq, Dh)), dtype, cuda)
-    ka, va = (_dev(a, dtype, cuda) for a in _arena(61, N, S_alloc, Hkv, Dh))
-    rng = np.random.default_rng(62)
+    q = _dev(_normal(seed, (B, Sq, Hq, Dh)), dtype, cuda)
+    ka, va = (_dev(a, dtype, cuda)
+              for a in _arena(seed + 1, N, S_alloc, Hkv, Dh))
+    rng = np.random.default_rng(seed + 2)
     slots = rng.permutation(N)[:B].astype(np.int32)
     kv_len = rng.integers(1, kv_valid + 1, B).astype(np.int32)
     kv_len[0] = kv_valid
@@ -644,12 +739,90 @@ def test_cuda_flash_kernels_match_plain(cuda, dtype, B, Sq, q_off, kv_valid,
     plain = tfla.paged_flash_attention_plain(
         q, ka, va, s, kv_valid=kv_valid, block_tables=bt, table_block=tb,
         **kw)
-    torch.testing.assert_close(out.float(), plain.float(), **_tol(dtype))
     gathered = [(tops._gather_block_rows(a, bt, tb) if bt is not None
                  else a[s.long()])[:, :kv_valid] for a in (ka, va)]
-    dense = tops.attention(q, *gathered, **kw)
-    assert torch.equal(out, dense)                     # one body, bitwise
+    assert torch.equal(out, tops.attention(q, *gathered, **kw))
     assert torch.isfinite(out).all()
+    return out, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,q_off,kv_valid,S_alloc,Hq,Hkv,Dh,causal,"
+                         "window,tb", [
+    (8, 256, 0, 256, 320, 32, 8, 64, True, None, None),   # main path
+    (8, 128, 128, 256, 320, 32, 8, 64, True, None, 64),   # extension
+    (2, 37, 50, 87, 116, 4, 2, 16, True, None, 29),       # ragged
+    (3, 64, 0, 64, 64, 8, 2, 32, False, 24, None),        # window, bidir
+    (1, 70, 130, 200, 200, 4, 4, 128, True, 33, 100),     # window + Dh 128
+])
+def test_cuda_flash_kernels_match_plain(cuda, dtype, B, Sq, q_off, kv_valid,
+                                        S_alloc, Hq, Hkv, Dh, causal, window,
+                                        tb):
+    out, plain = _extend_case(cuda, dtype, B, Sq, q_off, kv_valid, S_alloc,
+                              Hq, Hkv, Dh, causal, window, tb, 60)
+    torch.testing.assert_close(out.float(), plain.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,q_off,kv_valid,S_alloc,Hq,Hkv,Dh,causal,"
+                         "window,tb", [
+    (3, 1, 0, 1, 64, 4, 4, 16, True, None, None),       # one query, one key
+    (3, 15, 63, 78, 116, 8, 4, 32, True, None, 29),     # table block 29
+    (2, 77, 300, 377, 400, 16, 4, 64, True, None, 40),  # deep offset, tb 40
+    (2, 130, 0, 130, 160, 8, 2, 128, True, None, 40),   # prefill, Dh 128
+    (2, 77, 63, 140, 160, 4, 2, 64, False, None, None),  # bidirectional
+    (2, 130, 63, 193, 203, 4, 1, 128, True, 50, 29),    # window, tb 29
+    (1, 64, 300, 364, 400, 2, 1, 16, False, 33, 40),    # window, bidir
+])
+def test_cuda_flash_tc_ragged_edges(cuda, B, Sq, q_off, kv_valid, S_alloc,
+                                    Hq, Hkv, Dh, causal, window, tb):
+    """The tensor-core body off the 64-tile grid (Sq, kv_valid, q_offset),
+    with block tables that cross key tiles mid-way, windows and
+    bidirectional masks, within EXTEND_TOL of the plain version."""
+    out, plain = _extend_case(cuda, torch.bfloat16, B, Sq, q_off, kv_valid,
+                              S_alloc, Hq, Hkv, Dh, causal, window, tb, 100)
+    torch.testing.assert_close(out.float(), plain.float(), **EXTEND_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_cuda_flash_tc_head_dims_and_groups(cuda, Dh, g):
+    """Every head_dim and GQA group size of the tensor-core body, at a
+    ragged shape (77 queries at offset 63, 140 keys, table block 29)."""
+    out, plain = _extend_case(cuda, torch.bfloat16, 3, 77, 63, 140, 145,
+                              2 * g, 2, Dh, True, None, 29, 110 + Dh + g)
+    torch.testing.assert_close(out.float(), plain.float(), **EXTEND_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tc_fully_masked_rows_are_zero(cuda):
+    """bf16: rows with no visible key (window slid past, kv_len 0) are 0."""
+    q, k, v = (_dev(a, torch.bfloat16, cuda)
+               for a in _qkv(5, 2, 32, 32, 2, 1, 16))
+    out = tops.attention(q, k, v, causal=False, window=4, q_offset=64)
+    assert torch.equal(out, torch.zeros_like(out))
+    kl = _dev(np.asarray([0, 32], np.int32), torch.int32, cuda)
+    out = tops.attention(q, k, v, kv_len=kl)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out).all() and out[1].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tc_rejects_misaligned_rows(cuda):
+    """The tensor-core body copies 16-byte pieces: a bf16 q/k/v whose data
+    or strides break 16-byte alignment raises; f32 takes the FMA body."""
+    q, k, v = (_dev(a, torch.bfloat16, cuda)
+               for a in _qkv(6, 1, 16, 16, 2, 1, 20))
+    with pytest.raises(ValueError, match="aligned"):
+        tops.attention(q[..., 4:20], k[..., 4:20], v[..., 4:20])
+    with pytest.raises(ValueError, match="aligned"):
+        tops.attention(q[..., :16], k[..., :16], v[..., :16])
+    f = [x.float()[..., :16] for x in (q, k, v)]
+    torch.testing.assert_close(
+        tops.attention(*f), tfla.flash_attention_plain(*f),
+        **_tol(torch.float32))
 
 
 @pytest.mark.cuda

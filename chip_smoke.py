@@ -11,7 +11,9 @@ non-zero without printing a result:
             per source, all at once) and their registers and spills are
             printed (decode and flash attention per kernel and head_dim;
             at head_dim 64 and 128 the decode kernels and the extend
-            tensor-core body must not spill).
+            tensor-core body must not spill; ``relevance_score`` must not
+            spill at any width); then the timer's floor, an empty
+            launch timed per call and back to back.
 2. kernels  every attention entry point at main-path shapes (B=8, bf16
             arena, buckets 256..1024, slots with the scratch sentinel
             repeated, block tables) twice: at llama3.2-1b's heads (32 query
@@ -36,30 +38,37 @@ non-zero without printing a result:
 4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
             full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
             norm), bf16, batch 8, paged plane.  Restructure 28 documents
-            (classifier fit on 12, every document reordered through the
-            ``relevance_score`` kernel, one launch per document, orders
-            equal to those of the plain version's scores), score the six
-            proxy candidates through the engine, Algorithm 2 + 4, serve
-            16 test documents under the assembled cascade and its strict
-            variant (attention launches must match the server's), then the
-            oracle alone.  Every document must resolve; an empty assembled
-            cascade is a legal outcome with random weights.
+            (classifier fit on 12, every document's chunks scored by one
+            ``relevance_score`` launch per feed of up to 4096 chunks, one
+            here; each document's order equal to that of the plain
+            version's scores), score the six proxy candidates through the
+            engine, Algorithm 2 + 4, serve 16 test documents under the
+            assembled cascade and its strict variant (attention launches
+            must match the server's), then the oracle alone.  Every
+            document must resolve; an empty assembled cascade is a legal
+            outcome with random weights.
 5. relevance ``relevance_score`` against its plain version on every
-            document of the path, a ragged chunk count with ``len = 0`` and
-            ``len > T`` chunks, and 4096 chunks; timed at one document and
-            at 4096 chunks, beside its bound.
+            document of the path, on the path's corpus in one launch, on a
+            ragged chunk count with ``len = 0`` and ``len > T`` chunks, and
+            on 4096 chunks; bitwise batch invariance and two calls; timed
+            at one document, at the path's corpus and at 4096 chunks, per
+            call (``ms``) and back to back (``stream_ms``), beside its
+            bound.  Then the build path's restructure step rerun in its
+            parts (fit, head, host embedding, enqueue, wait, reorder; copy
+            and kernel on the device).
    With ``--profile``: ``torch.profiler`` counts of device kernels, their
    busy time against the wall clock, and the split between our attention
    kernels, cuBLAS products and everything else, for one decode step of
    each model and one serving run.
 6. a ``{"kernels": [...]}`` JSON line (launches: the serving and build
-   runs, each counted from zero), then the result line
-   ``{"ok": true, "device": {...}}``.
+   runs, each counted from zero; ``relevance_score`` also carries
+   ``stream_ms``), then the result line ``{"ok": true, "device": {...}}``.
 
 It imports only ``repro_torch`` (from ``src/`` beside this file).
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -114,15 +123,25 @@ def device_line() -> str:
 
 
 class Timer:
-    """Mean device time of one call, from CUDA events around each call;
-    a 64 MiB write between calls evicts the 50 MB L2, as the serving
+    """Device time of a call, two ways.
+
+    ``ms``: mean over calls timed one at a time by CUDA events around each
+    call; a 64 MiB write between calls evicts the 50 MB L2, as the serving
     path finds each layer's KV cold.  A ~2 ms device-side spin is queued
     before the start event, so the host has enqueued the whole call
     before the device reaches it: the events time the device work, not
     the host's launch overhead (which dominates calls shorter than
-    ~50 us)."""
+    ~50 us).  Its floor is what an empty launch measures (``main``
+    prints it once, beside the back-to-back floor).
+
+    ``stream_ms``: many launches back to back between one pair of events,
+    divided by their count.  The calls rotate over copies of their inputs
+    whose bytes together exceed the L2, so each call finds its inputs
+    cold; the spin before the start event doubles until the host has
+    enqueued every launch before the device starts them."""
 
     SPIN_CYCLES = 4_000_000
+    L2_BYTES = 50e6
 
     def __init__(self, dev):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -142,6 +161,32 @@ class Timer:
             self.end.synchronize()
             total += self.start.elapsed_time(self.end)
         return total / reps
+
+    def stream_ms(self, fns, reps: int = 256) -> float:
+        """``fns`` are the same call on different input copies; ``reps``
+        is rounded up to a multiple of their count."""
+        reps = -(-reps // len(fns)) * len(fns)
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        spin = self.SPIN_CYCLES
+        for _ in range(8):
+            self.flush.zero_()
+            torch.cuda._sleep(spin)
+            self.start.record()
+            for i in range(reps):
+                fns[i % len(fns)]()
+            self.end.record()
+            ahead = not self.start.query()     # device still spinning
+            self.end.synchronize()
+            if ahead:
+                return self.start.elapsed_time(self.end) / reps
+            spin *= 2
+        raise RuntimeError("stream_ms: the host never got ahead of the card")
+
+    def copies(self, nbytes: float) -> int:
+        """Input copies whose ``nbytes`` each together exceed the L2."""
+        return max(2, math.ceil(1.25 * self.L2_BYTES / nbytes))
 
 
 def head_dim_resources(source: str, res, kinds: dict,
@@ -510,6 +555,7 @@ def build_phase():
     2, steps 1-5) at full width: llama3.2-1b proxy (seed 1) and
     qwen3-1.7b oracle (seed 2), bf16, batch 8, paged plane.  The launch
     counters are zeroed before step 1 and read after step 5."""
+    from repro_torch.core.restructure import FEED_CHUNKS
     from repro_torch.core.tasks import Cascade
     from repro_torch.data.documents import generate_corpus
     from repro_torch.kernels import relevance_score as rel
@@ -573,7 +619,6 @@ def build_phase():
     wall = time.perf_counter() - t_path
     counts = _counts()
 
-    assert n_rel == len(docs), (n_rel, len(docs))
     for name, r in (("main", served.main), ("strict", served.strict),
                     ("oracle-only", oracle_only)):
         assert set(r.status) == set(test_ids), name
@@ -590,6 +635,8 @@ def build_phase():
         lens.append(lengths.cpu().numpy())
         n_chunks += len(lengths)
     lens = np.concatenate(lens)
+    feeds = -(-n_chunks // FEED_CHUNKS)
+    assert n_rel == feeds, (n_rel, n_chunks)
     T = restr.embedder.tokens("")[0].shape[0]
     fill = float(np.minimum(lens, T).mean() / T)
 
@@ -600,7 +647,8 @@ def build_phase():
     print(f"build: granularity {restr.granularity} lines, classifier F1 "
           f"{restr.f1:.4f}")
     print(f"build: {n_chunks} chunks scored over {len(docs)} documents "
-          f"({n_rel} relevance_score launches), mean fill "
+          f"({n_rel} relevance_score launch{'es' if n_rel > 1 else ''}, one "
+          f"per feed of up to {FEED_CHUNKS} chunks), mean fill "
           f"{fill:.4f} of T={T} token rows, restructure wall "
           f"{t_restr:.3f} s")
     print(f"build: kernel-ordered reorder == plain-ordered reorder for all "
@@ -618,75 +666,138 @@ def build_phase():
           f"match the server's")
     print(f"build: path wall {wall:.3f} s, kernel launches "
           f"{json.dumps(counts)}")
-    return counts, restr, docs, engine
+    return counts, restr, docs, engine, reordered
 
 
 def relevance_phase(dev, timer, restr, docs):
-    """``relevance_score`` against its plain version on the card: every
-    document of the path, a ragged chunk count with ``len = 0`` and
-    ``len > T`` chunks, and one corpus-scale call (C = 4096); timed at
-    the path's shape (the first test document) and at C = 4096."""
-    from repro_torch.kernels import ops
+    """``relevance_score`` on the card: against its plain version on every
+    document of the path, on the path's whole corpus in one launch, on a
+    ragged chunk count with ``len = 0`` and ``len > T`` chunks, and on 4096
+    chunks; bitwise: two calls, every document's own launch against its
+    slice of the corpus launch, and chunks of the 4096 alone or in a slice
+    against the full launch.  Timed at the path's first test document, at
+    the path's corpus and at 4096 chunks, per call and back to back,
+    beside the bound."""
+    from repro_torch.kernels import relevance_score as rel
     from repro_torch.kernels.relevance_score import relevance_score_plain
 
     w, b = restr.head()
     err = 0.0
-    path_lens = []
+    own = []
     for d in docs:
         x, lengths = restr.chunk_inputs(d)
-        k = ops.relevance_score(x, lengths, w, b)
+        k = rel.relevance_score(x, lengths, w, b)
         p = relevance_score_plain(x, lengths, w, b)
         torch.testing.assert_close(k, p, **REL_TOL)
         err = max(err, max_err(k, p))
-        path_lens.append(lengths)
+        own.append(k)
+    xh, lh, counts = restr.embed_corpus(docs)
+    cases = {"path corpus": (xh.to(dev), lh.to(dev))}
+    _, T, D = xh.shape
+    all_lens = cases["path corpus"][1]
     g = torch.Generator(device=dev).manual_seed(3)
-    _, T, D = restr.chunk_inputs(docs[0])[0].shape
-    all_lens = torch.cat(path_lens)
-    cases = {}
     # ragged C, an empty chunk and two overlong ones
     lens = all_lens[:13].clone()
     lens[0], lens[5], lens[9] = 0, T + 7, 3 * T
-    cases["ragged"] = lens
+    cases["ragged"] = (torch.randn((13, T, D), generator=g, device=dev), lens)
     # corpus scale: the path's chunk lengths tiled to 4096 chunks
-    cases["corpus"] = all_lens.repeat(4096 // len(all_lens) + 1)[:4096]
-    xs = {}
-    for name, lens in cases.items():
-        x = torch.randn((len(lens), T, D), generator=g, device=dev)
-        k = ops.relevance_score(x, lens.contiguous(), w, b)
+    lens = all_lens.repeat(4096 // len(all_lens) + 1)[:4096].contiguous()
+    cases["corpus"] = (torch.randn((4096, T, D), generator=g, device=dev),
+                       lens)
+    outs = {}
+    for name, (x, lens) in cases.items():
+        k = rel.relevance_score(x, lens, w, b)
         p = relevance_score_plain(x, lens, w, b)
         torch.testing.assert_close(k, p, **REL_TOL)
         err = max(err, max_err(k, p))
-        xs[name] = (x, lens.contiguous())
+        assert torch.equal(rel.relevance_score(x, lens, w, b), k), \
+            f"relevance {name}: two calls differ"
+        outs[name] = k
     torch.testing.assert_close(      # len 0 scores sigmoid(b)
-        ops.relevance_score(*xs["ragged"], w, b)[:1], torch.sigmoid(b),
-        **REL_TOL)
+        outs["ragged"][:1], torch.sigmoid(b), **REL_TOL)
+    for k, e, c in zip(own, np.cumsum(counts), counts):
+        assert torch.equal(k, outs["path corpus"][e - c: e]), \
+            "a document's own launch differs from the corpus launch"
+    x, lens = cases["corpus"]
+    for lo, hi in ((0, 1), (1, 2), (777, 778), (4095, 4096), (1000, 1430)):
+        assert torch.equal(rel.relevance_score(x[lo:hi], lens[lo:hi], w, b),
+                           outs["corpus"][lo:hi]), (lo, hi)
+    print(f"kernels [relevance_score]: two calls bitwise equal; each of "
+          f"the {len(docs)} documents' own "
+          f"launch bitwise equal to its slice of the corpus launch; chunks "
+          f"of the 4096 alone and in slices bitwise equal to the full launch")
 
-    def row(x, lengths):
+    def row(label, x, lengths):
         C = x.shape[0]
         n = float(torch.clamp(lengths, 0, T).sum())
-        nbytes = n * D * 4 + 12 * C + 4 * D
-        b_ms, b_by = bound(nbytes, 2.0 * n * D, PEAK_F32_FLOPS)
-        return dict(
-            ms=timer.ms(lambda: ops.relevance_score(x, lengths, w, b)),
-            plain_ms=timer.ms(lambda: relevance_score_plain(x, lengths, w,
-                                                            b)),
-            bound_ms=b_ms, bound_by=b_by, C=C)
-
-    path = row(*restr.chunk_inputs(docs[12]))
-    corpus = row(*xs["corpus"])
-    for label, r in (("path, one document", path), ("corpus", corpus)):
-        print(f"kernel relevance_score [{label}, C={r['C']}]: max_abs_err "
+        b_ms, b_by = bound(n * D * 4 + 12 * C + 4 * D, 2.0 * n * D,
+                           PEAK_F32_FLOPS)
+        xs = [x] + [x.clone() for _ in range(timer.copies(n * D * 4) - 1)]
+        fns = [functools.partial(rel.relevance_score, xi, lengths, w, b)
+               for xi in xs]
+        r = dict(C=C, bound_ms=b_ms, bound_by=b_by, ms=timer.ms(fns[0]),
+                 stream_ms=timer.stream_ms(fns),
+                 plain_ms=timer.ms(lambda: relevance_score_plain(
+                     x, lengths, w, b)))
+        print(f"kernel relevance_score [{label}, C={C}]: max_abs_err "
               f"{err:.3g} (tol atol={REL_TOL['atol']:g} "
-              f"rtol={REL_TOL['rtol']:g}), kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
+              f"rtol={REL_TOL['rtol']:g}), kernel {r['ms']:.4f} ms per call, "
+              f"stream {r['stream_ms']:.4f} ms back to back over "
+              f"{len(xs)} input copies; plain {r['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+        return r
+
+    row("path, one document", *restr.chunk_inputs(docs[12]))
+    path = row("path, corpus", *cases["path corpus"])
+    row("corpus", *cases["corpus"])
     return dict(
         name="relevance_score", route="cuda",
         source="src/repro_torch/kernels/csrc/relevance_score.cu",
         replaces="src/repro/kernels/relevance_score.py:41",
-        max_abs_err=err, ms=path["ms"], plain_ms=path["plain_ms"],
-        bound_ms=path["bound_ms"], bound_by=path["bound_by"],
-        library_ms=None)
+        max_abs_err=err, ms=path["ms"], stream_ms=path["stream_ms"],
+        plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
+        bound_by=path["bound_by"], library_ms=None)
+
+
+def restructure_breakdown(dev, docs, reordered) -> None:
+    """The build path's restructure step once more from a fresh
+    restructurer (cold word cache), in its parts, as ``score_corpus`` runs
+    them: classifier fit, the head placed on the device, host embedding of
+    every chunk, the enqueue of the copies and launches, the wait for the
+    scores, the reorder; on the device, the copies and the kernel by CUDA
+    events."""
+    from repro_torch.core.restructure import (DocumentRestructurer,
+                                              SyntheticOracle)
+    from repro_torch.launch import construct
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    r = DocumentRestructurer(construct.OPS["o_orig"], device=dev).fit(
+        docs[:12], SyntheticOracle(noise=construct.ORACLE_NOISE))
+    t.append(time.perf_counter())
+    w, b = r.head()
+    t.append(time.perf_counter())
+    x, lengths, counts = r.embed_corpus(docs)
+    t.append(time.perf_counter())
+    ev[0].record()
+    scores = r.score_inputs(x, lengths, w, b)
+    ev[1].record()
+    t.append(time.perf_counter())
+    scores = scores.cpu().numpy()
+    t.append(time.perf_counter())
+    texts = [d.reordered(r.order_lines(d, scores[e - c: e])).text
+             for d, e, c in zip(docs, np.cumsum(counts), counts)]
+    t.append(time.perf_counter())
+    assert texts == [reordered[d.doc_id] for d in docs], "breakdown rerun"
+    parts = np.diff(t) * 1e3
+    print(f"build: restructure breakdown (rerun, cold word cache): wall "
+          f"{(t[-1] - t[0]) * 1e3:.3f} ms = fit {parts[0]:.3f} + head to "
+          f"the device {parts[1]:.3f} + embed on the host {parts[2]:.3f} + "
+          f"enqueue copies and launches {parts[3]:.3f} + wait for the "
+          f"scores {parts[4]:.3f} + reorder {parts[5]:.3f} ms; on the "
+          f"device: copy of {x.numel() * 4 / 1e6:.1f} MB and kernel "
+          f"{ev[0].elapsed_time(ev[1]):.4f} ms")
 
 
 def _device_kernels(prof):
@@ -806,12 +917,23 @@ def main() -> int:
         _build.resources(_build.log_path("flash_attention")),
         {"flash_attention_tc_kernel": "tensor-core",
          "flash_attention_kernel": "fma"}, ("tensor-core",))
+    for r in _build.resources(_build.log_path("relevance_score")):
+        vpl = int(re.search(r"Li(\d+)E", r["kernel"]).group(1))
+        spill = r["spill_stores"] + r["spill_loads"]
+        print(f"build: relevance_score D <= {128 * vpl}: registers "
+              f"{r['registers']}, spill bytes {spill}")
+        assert spill == 0, r
     timer = Timer(dev)
+    empty = lambda: torch.cuda._sleep(0)                    # noqa: E731
+    print(f"timer floor: an empty launch (torch.cuda._sleep(0)) times "
+          f"{timer.ms(empty):.4f} ms per call, {timer.stream_ms([empty]):.4f} "
+          f"ms back to back")
     rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
     kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")
     launches, models, params, docs = serving_phase()
-    build_launches, restr, build_docs, engine = build_phase()
+    build_launches, restr, build_docs, engine, reordered = build_phase()
     rows.append(relevance_phase(dev, timer, restr, build_docs))
+    restructure_breakdown(dev, build_docs, reordered)
     if "--profile" in sys.argv[1:]:
         profile_phase(models, params, docs, engine.backends["oracle"])
     for r in rows:
@@ -820,7 +942,8 @@ def main() -> int:
         assert r["launches"] > 0, r["name"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("stream_ms",) if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

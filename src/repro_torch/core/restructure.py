@@ -14,7 +14,10 @@ Pipeline (faithful to §4):
      operation embedding with Adam + early stopping on held-out F1;
   6. at serving time: score chunks (the fused mean-pool + logistic CUDA
      kernel, ``kernels.ops.relevance_score``), sort descending,
-     concatenate.
+     concatenate.  ``score_corpus`` scores every chunk of a corpus in one
+     launch per feed of at most ``FEED_CHUNKS`` chunks; the kernel's sums
+     do not depend on what shares a launch, so on the card each document
+     gets the same bits as from a launch of its own.
 
 Embeddings are hashed word vectors (deterministic, offline) standing in
 for text-embedding-3-small; the classifier, training loop, and kernel
@@ -38,6 +41,7 @@ from ..models.runtime import DeviceLike, resolve_device
 
 EMBED_DIM = 256
 MAX_CHUNK_WORDS = 64
+FEED_CHUNKS = 4096      # chunks a copy and launch: 256 MiB of [C, 64, 256] f32
 
 
 # ---------------------------------------------------------------------------
@@ -345,11 +349,8 @@ class DocumentRestructurer:
         """The kernel's inputs for ``doc`` on the restructurer's device:
         token embeddings [C, T, D] f32 (zero rows past each chunk's
         words) and int32 word counts [C]."""
-        toks, lens = zip(*(self.embedder.tokens(c)
-                           for c in self.chunks_of(doc)))
-        x = torch.from_numpy(np.stack(toks)).to(self.device)
-        lengths = torch.from_numpy(np.asarray(lens, np.int32)).to(self.device)
-        return x, lengths
+        x, lengths, _ = self.embed_corpus([doc])
+        return x.to(self.device), lengths.to(self.device)
 
     def head(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The fitted classifier as device tensors: w [D] and b [1]."""
@@ -360,9 +361,52 @@ class DocumentRestructurer:
 
     def score_chunks(self, doc: SyntheticDoc) -> np.ndarray:
         """Chunk relevance scores [C] through the fused kernel path."""
-        x, lengths = self.chunk_inputs(doc)
+        return self.score_corpus([doc])[0]
+
+    def embed_corpus(self, docs: Sequence[SyntheticDoc]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+        """Every chunk of ``docs`` as one host input, in document order:
+        token embeddings [sum C, T, D] f32 (zero rows past each chunk's
+        words) and int32 word counts, in page-locked memory when scoring
+        on a GPU, and each document's chunk count."""
+        chunks = [self.chunks_of(d) for d in docs]
+        counts = [len(c) for c in chunks]
+        pin = self.device.type == "cuda"
+        x = torch.empty((sum(counts), MAX_CHUNK_WORDS, self.embedder.dim),
+                        dtype=torch.float32, pin_memory=pin)
+        lengths = torch.empty(sum(counts), dtype=torch.int32, pin_memory=pin)
+        xs, ls = x.numpy(), lengths.numpy()
+        for k, text in enumerate(c for cs in chunks for c in cs):
+            xs[k], ls[k] = self.embedder.tokens(text)
+        return x, lengths, counts
+
+    def score_inputs(self, x: torch.Tensor, lengths: torch.Tensor,
+                     w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Scores [C] of host inputs from :meth:`embed_corpus` under the
+        device head ``w``, ``b`` (:meth:`head`), left on the device and
+        not synchronised: each feed of at most ``FEED_CHUNKS`` chunks is
+        one non-blocking copy to the device and one kernel launch, so the
+        device holds one feed's input at a time."""
+        parts = [ops.relevance_score(
+                     x[i: i + FEED_CHUNKS].to(self.device, non_blocking=True),
+                     lengths[i: i + FEED_CHUNKS].to(self.device,
+                                                    non_blocking=True), w, b)
+                 for i in range(0, x.shape[0], FEED_CHUNKS)]
+        return (torch.cat(parts) if parts
+                else torch.empty(0, dtype=torch.float32, device=self.device))
+
+    def score_corpus(self, docs: Sequence[SyntheticDoc]
+                     ) -> List[np.ndarray]:
+        """Every document's chunk scores: the head is placed on the
+        device first, so the copies and launches of :meth:`score_inputs`
+        wait on nothing, and the host waits once, for the scores.  On
+        the card a document's scores are bitwise those of its own
+        launch."""
         w, b = self.head()
-        return ops.relevance_score(x, lengths, w, b).cpu().numpy()
+        x, lengths, counts = self.embed_corpus(docs)
+        scores = self.score_inputs(x, lengths, w, b).cpu().numpy()
+        ends = np.cumsum(counts, dtype=int)
+        return [scores[e - c: e] for c, e in zip(counts, ends)]
 
     def order_lines(self, doc: SyntheticDoc, scores: np.ndarray) -> List[int]:
         """Line order that puts chunks by descending score (stable)."""
@@ -374,3 +418,10 @@ class DocumentRestructurer:
     def reorder(self, doc: SyntheticDoc) -> SyntheticDoc:
         """Sort chunks by predicted relevance (desc); concatenate."""
         return doc.reordered(self.order_lines(doc, self.score_chunks(doc)))
+
+    def reorder_corpus(self, docs: Sequence[SyntheticDoc]
+                       ) -> List[SyntheticDoc]:
+        """:meth:`reorder` of every document, scored by one
+        :meth:`score_corpus`."""
+        return [d.reordered(self.order_lines(d, s))
+                for d, s in zip(docs, self.score_corpus(docs))]

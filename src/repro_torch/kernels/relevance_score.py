@@ -10,7 +10,11 @@ edge, so the chunk axis is never padded.
 The kernel reads only the rows ``t < min(len_c, T)`` of each chunk.  For
 finite ``x`` that equals multiplying the padding rows by a zero mask, as
 the plain version does; the restructurer's embedder zero-fills its
-padding rows anyway (``core.restructure.HashEmbedder.tokens``).
+padding rows anyway (``core.restructure.HashEmbedder.tokens``).  The order
+of every sum is fixed by ``(T, D)`` alone, so a chunk's score is bitwise
+the same whatever other chunks share the call and at whatever index it
+sits: a corpus may be scored in one call, or split into feeds, with the
+same bits as one call per document.
 
 The wrapper takes CUDA tensors only and raises otherwise: ``x`` f32
 ``[C, T, D]`` contiguous (``D`` a multiple of 4, at most 1024),

@@ -2,7 +2,8 @@
 Figure 2, steps 1-5 of ``examples/serve_cascade_torch.py``).
 
 1. ``restructure``: fit the §4 document restructurer on the dev split
-   with an oracle labeler, reorder every document (relevance kernel);
+   with an oracle labeler, reorder every document (one relevance kernel
+   launch per feed of up to 4096 chunks);
 2. ``score_candidates``: run each candidate (model, operation, fraction)
    through a backend's stage step over length buckets -> ``TaskScores``;
 3. ``doc_cost_model``: the token cost model of the dev documents;
@@ -54,10 +55,11 @@ def restructure(docs: Sequence[SyntheticDoc], n_dev: int, *,
                 ) -> Tuple[DocumentRestructurer, Dict[int, str]]:
     """Fit on ``docs[:n_dev]`` for the original operation with a noisy
     ``SyntheticOracle``; return the restructurer and every document's
-    reordered text by id."""
+    reordered text by id, all scored in one ``score_corpus``."""
     restr = DocumentRestructurer(OPS["o_orig"], device=device).fit(
         docs[:n_dev], SyntheticOracle(noise=ORACLE_NOISE))
-    return restr, {d.doc_id: restr.reorder(d).text for d in docs}
+    return restr, {d.doc_id: r.text
+                   for d, r in zip(docs, restr.reorder_corpus(docs))}
 
 
 def candidate_configs() -> List[TaskConfig]:

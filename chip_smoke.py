@@ -26,7 +26,12 @@ non-zero without printing a result:
             (kv_len 0, 1, C-1, C, C+1, 2C, S, S+5), and bitwise: two calls
             agree, and each sequence alone (the other rows the scratch
             sentinel) equals its row of the batch; extend likewise, for
-            the paged and the dense entry.
+            the paged and the dense entry.  Then ``kernels [prefix
+            tables]``: decode and extend through block tables that mix a
+            pinned prefix row with private rows (table block 16: two whole
+            shared columns; 512: a copy-on-write remainder), bitwise equal
+            to the same kernels over materialized slot rows and within the
+            tolerances of the plain versions, at both models' heads.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -35,6 +40,18 @@ non-zero without printing a result:
             after it; every document must resolve, the kernel launch counts
             must match the launches the server made, and preds, confs and
             per-document $ must be bitwise equal across the three runs.
+            ``serve [prefix]``: the same queries over longer operations on
+            the doc-before-op plane and on the prefix plane at layout
+            blocks 16 and 512, inflight 1 and 3: all resolved, kernel
+            launches matching the server's (op-prefix prefills included),
+            inflight=3 == inflight=1 bitwise, every pinned row bitwise as
+            prefilled after the drain, and a same-op ladder whose
+            per-document $ equals the doc-before-op plane's exactly.
+            ``serve [chaos]``: a seeded chaos drain (launch failures, NaN
+            confidences, latency spikes, one arena loss, two tenants, one
+            expired deadline), then a crash after four steps and a warm
+            restart from the journal; every check printed as a boolean and
+            required true.
 4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
             full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
             norm), bf16, batch 8, paged plane.  Restructure 28 documents
@@ -59,10 +76,12 @@ non-zero without printing a result:
    With ``--profile``: ``torch.profiler`` counts of device kernels, their
    busy time against the wall clock, and the split between our attention
    kernels, cuBLAS products and everything else, for one decode step of
-   each model and one serving run.
-6. a ``{"kernels": [...]}`` JSON line (launches: the serving and build
-   runs, each counted from zero; ``relevance_score`` also carries
-   ``stream_ms``), then the result line ``{"ok": true, "device": {...}}``.
+   each model, one serving run, and the same-op ladder of ``serve
+   [prefix]`` on each layout.
+6. a ``{"kernels": [...]}`` JSON line (launches: the serving, prefix
+   (block 16, inflight 1), chaos and build runs, each counted from zero;
+   ``relevance_score`` also carries ``stream_ms``), then the result line
+   ``{"ok": true, "device": {...}}``.
 
 It imports only ``repro_torch`` (from ``src/`` beside this file).
 """
@@ -112,6 +131,21 @@ OPS = {
     "o_orig": "does this opinion overturn a lower court decision",
     "sur_court": "is any lower court mentioned overturn reversed vacated",
 }
+# The prefix plane's operations: longer than a 16-token layout block, so
+# at block 16 each shares through whole block-table columns (padded to 32
+# positions) and at the default 512 through a copy-on-write remainder.
+PREFIX_OPS = {
+    "o_orig": "does this opinion overturn reverse or vacate a lower court "
+              "decision and send the case back to the trial court",
+    "sur_court": "is any lower court or trial court mentioned together with "
+                 "words such as overturn reversed vacated remanded or "
+                 "affirmed",
+}
+PREFIX_BLOCKS = (16, 512)
+# the seeded chaos drain of tests/test_torch_faults.py
+CHAOS_SEED = 23
+CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
+                  spike_s=1e-4, arena_loss_at=4)
 
 
 def device_line() -> str:
@@ -455,20 +489,30 @@ def _counts():
     return {**dec.LAUNCHES, **fla.LAUNCHES, **rel.LAUNCHES}
 
 
-def serve_once(models, params, docs, *, paged: bool, inflight: int):
+def make_server(models, params, *, inflight: int, ops=OPS,
+                server_kw=None, **be_kw):
+    """Proxy and oracle backends over ``models`` and a batch-8 server on
+    the card; ``be_kw`` goes to both backends, ``server_kw`` to the
+    server."""
     from repro_torch.data.tokenizer import HashWordTokenizer
     from repro_torch.serving.engine import CascadeServer, LMBackend
-    from repro_torch.serving.scheduler import RESOLVED
 
     tokz = HashWordTokenizer(vocab_size=128256)
     rates = {"proxy": 0.15e-6, "oracle": 2.50e-6}
     backends = {n: LMBackend(name=n, model=models[n], params=params[n],
                              tokenizer=tokz, rate_per_token=rates[n],
-                             paged=paged, device="cuda")
+                             device="cuda", **be_kw)
                 for n in ("proxy", "oracle")}
-    srv = CascadeServer(backends, OPS, n_classes=2, batch_size=8,
-                        inflight=inflight, device="cuda")
-    handles = [srv.register(c) for c in tenant_cascades()]
+    return CascadeServer(backends, ops, n_classes=2, batch_size=8,
+                         inflight=inflight, device="cuda",
+                         **(server_kw or {}))
+
+
+def drive(srv, cascades, docs):
+    """Register ``cascades``, submit every document to each (arrival
+    order = document order) and drain, with the launch counters zeroed
+    just before and read just after.  Returns (results, counts, wall s)."""
+    handles = [srv.register(c) for c in cascades]
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -478,32 +522,57 @@ def serve_once(models, params, docs, *, paged: bool, inflight: int):
     srv.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _counts()
-    results = {h.query_id: h.result() for h in handles}
+    return {h.query_id: h.result() for h in handles}, _counts(), wall
+
+
+def check_launches(srv, counts, *, paged: bool = True, prefills: int = 0):
+    """The kernel counters against the server's launches.  A standard
+    stage launch runs one flash extend per layer when it has new tokens
+    and one decode per layer per operation token; a prefix-plane launch
+    one decode per layer (the readout), and each op-prefix prefill one
+    flash extend per layer.  Launches that failed ran no step."""
+    want_flash = want_decode = 0
+    for rec in srv.telemetry.launches.items():
+        if not rec.ok:
+            continue
+        be = srv.backends[rec.model]
+        n_layers = be.model.num_layers
+        if rec.f_len > rec.cached_len:
+            want_flash += n_layers
+        want_decode += n_layers * (1 if be.prefix_sharing else len(
+            be.tokenizer.encode(srv.operations[rec.op_id])))
+    want_flash += prefills
+    fl_key = "paged_flash_attention" if paged else "flash_attention"
+    de_key = "paged_decode_attention" if paged else "decode_attention"
+    assert counts[fl_key] == want_flash > 0, (counts, want_flash)
+    assert counts[de_key] == want_decode > 0, (counts, want_decode)
+
+
+def assert_resolved(results, docs):
+    from repro_torch.serving.scheduler import RESOLVED
     for qid, r in results.items():
         assert set(r.status) == set(docs), f"query {qid}: docs missing"
         bad = {d: s for d, s in r.status.items() if s != RESOLVED}
         assert not bad, f"query {qid}: not resolved {bad}"
-    # every stage launch runs one flash extend per layer when it has new
-    # tokens and one decode per layer per operation token
-    n_layers = models["proxy"].num_layers
-    want_flash = want_decode = 0
-    for rec in srv.telemetry.launches.items():
-        assert rec.ok, rec
-        if rec.f_len > rec.cached_len:
-            want_flash += n_layers
-        want_decode += n_layers * len(tokz.encode(OPS[rec.op_id]))
-    fl_key = "paged_flash_attention" if paged else "flash_attention"
-    de_key = "paged_decode_attention" if paged else "decode_attention"
-    assert counts[fl_key] == want_flash, (counts, want_flash)
-    assert counts[de_key] == want_decode, (counts, want_decode)
-    n = sum(len(r.status) for r in results.values())
+
+
+def latency_ms(results):
     lat = [x for r in results.values() for x in r.stats.latencies]
+    return 1e3 * np.quantile(lat, 0.5), 1e3 * np.quantile(lat, 0.99)
+
+
+def serve_once(models, params, docs, *, paged: bool, inflight: int):
+    srv = make_server(models, params, inflight=inflight, paged=paged)
+    results, counts, wall = drive(srv, tenant_cascades(), docs)
+    assert_resolved(results, docs)
+    check_launches(srv, counts, paged=paged)
+    n = sum(len(r.status) for r in results.values())
+    p50, p99 = latency_ms(results)
     label = f"{'paged' if paged else 'gather'} inflight={inflight}"
     print(f"serve [{label}]: {n} docs terminal and RESOLVED in "
           f"{wall:.3f} s ({n / wall:.2f} docs/s), {srv.stats().batches} "
-          f"launches, latency p50 {1e3 * np.quantile(lat, 0.5):.1f} ms "
-          f"p99 {1e3 * np.quantile(lat, 0.99):.1f} ms, kernel launches "
+          f"launches, latency p50 {p50:.1f} ms "
+          f"p99 {p99:.1f} ms, kernel launches "
           f"{json.dumps(counts)}")
     for qid, r in results.items():
         preds = "".join(str(r.pred[d]) for d in sorted(docs))
@@ -548,6 +617,293 @@ def serving_phase():
                 "decode_attention": runs[(False, 1)][1]["decode_attention"],
                 "flash_attention": runs[(False, 1)][1]["flash_attention"]}
     return launches, models, params, docs
+
+
+def prefix_kernel_phase(dev, Hq: int, Hkv: int, Dh: int, label: str):
+    """The decode and extend kernels through block tables that mix a
+    pinned prefix row with private rows, as the prefix plane builds them:
+    at table block 16 the 32-position prefix fills two whole shared
+    columns, at the default block 512 the 20-token prefix is a
+    copy-on-write remainder in each private row.  Each must equal, bitwise,
+    the same kernel over slot rows holding a materialized copy of the
+    prefix, and stay within the tolerances of its plain version."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    B, N, row = 8, 17, 15                    # 16 slots + scratch row 16
+    slots = torch.tensor([5, 2, 9, 0, 14, 7, 16, 16], dtype=torch.int32,
+                         device=dev)
+    attached = slots[:6].long()
+    errs = []
+    for tb, P in ((16, 32), (512, 20)):
+        S = 576 if tb == 16 else 1024        # bucket 512 + 64, rounded
+        ka = torch.randn((N, S, Hkv, Dh), generator=g, device=dev).to(bf16)
+        va = torch.randn((N, S, Hkv, Dh), generator=g, device=dev).to(bf16)
+        shared = (P // tb) * tb              # positions in shared columns
+        if P > shared:                       # the copy-on-write remainder
+            ka[attached, shared:P] = ka[row, shared:P]
+            va[attached, shared:P] = va[row, shared:P]
+        bt = slots[:, None].repeat(1, S // tb)
+        bt[:6, : P // tb] = row
+        mk, mv = ka.clone(), va.clone()      # the prefix materialized
+        mk[attached, :shared] = ka[row, :shared]
+        mv[attached, :shared] = va[row, :shared]
+        # decode: the readout of documents of 1..480 tokens behind P
+        kv_len = torch.tensor([P + 480, P + 300, P + 1, P + 77, P + 200,
+                               P + 9, 1, 1], dtype=torch.int32, device=dev)
+        q = torch.randn((B, Hq, Dh), generator=g, device=dev).to(bf16)
+        d_bt = ops.arena_decode_attention(q, ka, va, slots, kv_len,
+                                          block_tables=bt)
+        d_mat = ops.arena_decode_attention(q, mk, mv, slots, kv_len)
+        assert torch.equal(d_bt, d_mat), ("prefix-table decode", tb)
+        d_plain = dec.paged_decode_attention_plain(
+            q, ka, va, slots, kv_len, block_tables=bt, table_block=tb)
+        torch.testing.assert_close(d_bt.float(), d_plain.float(),
+                                   **DECODE_TOL)
+        # extend: a document's fraction 0.25 -> 1.0 behind the prefix
+        Sq, off = 384, P + 128
+        qe = torch.randn((B, Sq, Hq, Dh), generator=g, device=dev).to(bf16)
+        kw = dict(kv_valid=off + Sq, q_offset=off,
+                  kv_len=torch.clamp(kv_len + 128, max=off + Sq))
+        e_bt = ops.attention_paged(qe, ka, va, slots, block_tables=bt, **kw)
+        e_mat = ops.attention_paged(qe, mk, mv, slots, **kw)
+        assert torch.equal(e_bt, e_mat), ("prefix-table extend", tb)
+        e_plain = fla.paged_flash_attention_plain(
+            qe, ka, va, slots, block_tables=bt, table_block=tb, **kw)
+        torch.testing.assert_close(e_bt.float(), e_plain.float(),
+                                   **EXTEND_TOL)
+        errs.append(f"block {tb}: {P // tb} shared column(s), remainder "
+                    f"{P - shared}, decode err {max_err(d_bt, d_plain):.3g}, "
+                    f"extend err {max_err(e_bt, e_plain):.3g}")
+    print(f"kernels [prefix tables, {label}]: decode and extend through "
+          f"tables naming pinned row {row} == over materialized slot rows "
+          f"bitwise, within tol of the plain versions; " + "; ".join(errs))
+
+
+def watch_prefix_rows(srv):
+    """Record every op-prefix prefill of the server's backends with the
+    row's KV window just after it; returns the list of
+    ``(backend, arena, op, row, window)``."""
+    seen = []
+    for be in srv.backends.values():
+        orig = be._ensure_prefix_row
+
+        def ensure(arena, bucket, op_key, op_tokens, be=be, orig=orig):
+            fresh = op_key not in arena.prefix_row
+            row = orig(arena, bucket, op_key, op_tokens)
+            if fresh:
+                seen.append((be, arena, op_key, row,
+                             _prefix_window(be, arena, row, len(op_tokens))))
+            return row
+
+        be._ensure_prefix_row = ensure
+    return seen
+
+
+def _prefix_window(be, arena, row, P):
+    idx = torch.tensor([row], dtype=torch.int32, device="cuda")
+    win = be.model.take_kv_window(arena.states, idx, idx * 0,
+                                  be._prefix_eff_len(P))
+    return [t.clone() for layer in win for t in layer.values()]
+
+
+def pinned_rows_unchanged(seen) -> int:
+    """Compare every prefix row still pinned after a drain with its window
+    at prefill; returns how many were compared."""
+    n = 0
+    for be, arena, op, row, base in seen:
+        if be._arenas.get(arena.bucket) is not arena \
+                or arena.prefix_row.get(op) != row:
+            continue                         # memo dropped since (retired)
+        now = _prefix_window(be, arena, row, arena.prefix_len[row])
+        assert all(torch.equal(a, b) for a, b in zip(base, now)), \
+            ("pinned row changed", be.name, arena.bucket, op)
+        n += 1
+    return n
+
+
+def same_op_ladder():
+    """Both stages run ``o_orig`` with no early exit: every layout makes
+    the same launches over the same tokens, and the op-first plane bills
+    exactly what the doc-before-op plane bills."""
+    from repro_torch.core.tasks import Cascade, Task, TaskConfig
+    thr = {0: 2.0, 1: 2.0}
+    return Cascade([Task(TaskConfig("proxy", "o_orig", 0.25), thr),
+                    Task(TaskConfig("proxy", "o_orig", 1.0), thr)])
+
+
+def prefix_serving_phase(models, params, docs):
+    """The two tenant cascades on the prefix plane at layout blocks 16
+    and 512, inflight 1 and 3, against the doc-before-op plane on the same
+    operations; then a same-op ladder on both planes, whose per-document
+    $ must agree exactly.  Launch counters are zeroed before each drain
+    and read after it (the block-16 inflight=1 drain is the path's
+    count)."""
+    def report(label, srv, results, counts, wall):
+        n = sum(len(r.status) for r in results.values())
+        p50, p99 = latency_ms(results)
+        agg = srv.stats()
+        print(f"serve [{label}]: {n} docs terminal and RESOLVED in "
+              f"{wall:.3f} s ({n / wall:.2f} docs/s), {agg.batches} "
+              f"launches, latency p50 {p50:.1f} ms p99 {p99:.1f} ms, "
+              f"prefix_hits {agg.prefix_hits}, cow_copies {agg.cow_copies}, "
+              f"arena bytes peak {agg.arena_bytes_peak}, kernel launches "
+              f"{json.dumps(counts)}")
+
+    srv = make_server(models, params, inflight=1, ops=PREFIX_OPS)
+    results, counts, wall = drive(srv, tenant_cascades(), docs)
+    assert_resolved(results, docs)
+    check_launches(srv, counts)
+    report("prefix ops, doc-before-op inflight=1", srv, results, counts,
+           wall)
+    path_counts = None
+    for block in PREFIX_BLOCKS:
+        sigs = {}
+        for inflight in (1, 3):
+            srv = make_server(models, params, inflight=inflight,
+                              ops=PREFIX_OPS, prefix_sharing=True,
+                              layout_block=block)
+            seen = watch_prefix_rows(srv)
+            results, counts, wall = drive(srv, tenant_cascades(), docs)
+            assert_resolved(results, docs)
+            check_launches(srv, counts, prefills=sum(
+                be.model.num_layers for be, *_ in seen))
+            report(f"prefix block={block} inflight={inflight}", srv,
+                   results, counts, wall)
+            assert srv.stats().prefix_hits > 0
+            assert (srv.stats().cow_copies > 0) == (block == 512)
+            assert (srv._max_inflight_seen == 1) == (inflight == 1)
+            pinned = pinned_rows_unchanged(seen)
+            assert pinned > 0
+            sigs[inflight] = {q: (r.pred, r.conf, r.doc_cost)
+                              for q, r in results.items()}
+            if block == 16 and inflight == 1:
+                path_counts = counts
+        assert sigs[3] == sigs[1], f"prefix block {block}: inflight 3 != 1"
+        print(f"serve [prefix block={block}]: inflight=3 == inflight=1 "
+              f"bitwise (preds, confs, per-document $); {len(seen)} prefix "
+              f"prefills, {pinned} rows still pinned after the drain "
+              f"bitwise unchanged")
+    ladder = [same_op_ladder()]
+    costs, launches = {}, {}
+    for block in (None,) + PREFIX_BLOCKS:
+        kw = {} if block is None else dict(prefix_sharing=True,
+                                           layout_block=block)
+        srv = make_server(models, params, inflight=1, ops=PREFIX_OPS, **kw)
+        results, counts, wall = drive(srv, ladder, docs)
+        assert_resolved(results, docs)
+        costs[block] = results[0].doc_cost
+        launches[block] = srv.stats().batches
+        report("same-op ladder, " + ("doc-before-op" if block is None
+                                     else f"prefix block={block}"),
+               srv, results, counts, wall)
+    for block in PREFIX_BLOCKS:
+        assert costs[block] == costs[None], f"same-op $ at block {block}"
+        assert launches[block] == launches[None], "same-op launches"
+    print(f"serve [prefix]: same-op ladder per-document $ and launches "
+          f"== doc-before-op plane exactly at blocks {list(PREFIX_BLOCKS)} "
+          f"(${math.fsum(costs[None].values()):.12g} over {len(docs)} "
+          f"docs)")
+    return path_counts
+
+
+def chaos_phase(models, params):
+    """The seeded chaos drain (launch failures, NaN confidences, latency
+    spikes, one arena loss; two tenants; one expired deadline) and a warm
+    restart from the journal after four steps, at full width on the
+    paged plane.  Counters are zeroed before the drain and read after."""
+    from repro_torch.data.documents import generate_corpus
+    from repro_torch.serving.engine import RequestJournal
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+    from repro_torch.serving.scheduler import (TERMINAL_STATES, TIMED_OUT,
+                                               RetryPolicy)
+
+    docs = {d.doc_id: d.text
+            for d in generate_corpus(12, avg_lines=12, seed=7)}
+    plan = FaultPlan(seed=CHAOS_SEED, **CHAOS_PLAN)
+
+    def server(journal=False):
+        return make_server(models, params, inflight=1, server_kw=dict(
+            retry=RetryPolicy(max_retries=2, backoff_base=0.0),
+            journal=RequestJournal() if journal else None))
+
+    def submit(srv):
+        ids = sorted(docs)
+        futs = {}
+        for k, h in enumerate(srv.register(c) for c in tenant_cascades()):
+            for j, d in enumerate(ids[k::2]):
+                futs[(h.query_id, d)] = h.submit(
+                    d, docs[d], arrival=float(j),
+                    deadline_s=0.0 if (k == 0 and j == 0) else None)
+        return futs
+
+    def ledger_exact(srv):
+        per_q = {qid: 0.0 for qid in srv._handles}
+        per_doc = {}
+        for _, qid, rid, cost in srv.ledger():
+            per_q[qid] += cost
+            per_doc[rid] = per_doc.get(rid, 0.0) + cost
+        return (all(t == srv.cost(q) for q, t in per_q.items())
+                and all(per_doc.get(rid, 0.0) == req.cost
+                        for rid, req in srv._requests.items()))
+
+    srv = server()
+    inj = FaultInjector(plan).install(srv)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = submit(srv)
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check_launches(srv, counts)
+    agg = srv.stats()
+    statuses = [f.status for f in futs.values()]
+    checks = {
+        "all_terminal": all(f.done and f.status in TERMINAL_STATES
+                            for f in futs.values()),
+        "accounting_exact": ledger_exact(srv),
+        "deadline_timed_out": futs[(0, sorted(docs)[0])].status == TIMED_OUT,
+        "one_arena_loss": inj.counts["arena_losses"] == 1,
+    }
+    terminal = {s: statuses.count(s) for s in sorted(set(statuses))}
+    print(f"serve [chaos]: {len(futs)} docs in {wall:.3f} s, injected "
+          f"{json.dumps(inj.counts)}; terminal {json.dumps(terminal)}; "
+          f"retries {agg.retries} quarantines {agg.quarantines} timeouts "
+          f"{agg.timeouts} failures {agg.failures} breaker trips "
+          f"{agg.breaker_trips} recovered_docs {agg.recovered_docs}; "
+          f"kernel launches {json.dumps(counts)}")
+
+    crashed = server(journal=True)
+    FaultInjector(plan).install(crashed)
+    submit(crashed)
+    for _ in range(4):                      # partial progress, then "crash"
+        crashed.step()
+    journal = crashed.journal
+    pre = dict(journal.resolutions)
+    fresh = server(journal=True)
+    for c in tenant_cascades():             # same cascades, same order
+        fresh.register(c)
+    rec = fresh.recover(journal)
+    checks["recovery_restored_exact"] = bool(pre) and all(
+        rec[k].done and rec[k].status == r["status"]
+        and rec[k].pred == r["pred"] and rec[k].cost == r["cost"]
+        for k, r in pre.items())
+    fresh.drain()
+    checks["recovery_all_terminal"] = all(
+        f.done and f.status in TERMINAL_STATES for f in rec.values())
+    checks["recovery_accounting_exact"] = ledger_exact(fresh)
+    print(f"serve [chaos]: journal after 4 steps: {len(pre)} of "
+          f"{len(journal.submits)} terminal, {len(journal.submits) - len(pre)}"
+          f" resubmitted, recovered_docs {fresh.stats().recovered_docs}")
+    print(f"serve [chaos]: checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if v is not True]
+    assert not failed, f"chaos checks failed: {failed}"
+    return counts
 
 
 def build_phase():
@@ -869,9 +1225,10 @@ def _profile_decode_step(model, p, label: str) -> None:
 def profile_phase(models, params, docs, oracle) -> None:
     """Where the time goes (``--profile``): ``torch.profiler`` device
     kernels of one paged decode step of each model (the llama3.2-1b of
-    the serving phase, the qwen3-1.7b oracle of the build phase) and of
-    one paged serving run; wall clocks come from runs without the
-    profiler."""
+    the serving phase, the qwen3-1.7b oracle of the build phase), of one
+    paged serving run, and of the same-op ladder over the prefix phase's
+    operations on the doc-before-op plane and on the prefix plane at both
+    layout blocks; wall clocks come from runs without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -886,6 +1243,26 @@ def profile_phase(models, params, docs, oracle) -> None:
         serve_once(models, params, sub, paged=True, inflight=1)
     _report("paged serving run, 2 queries x 8 docs, inflight=1",
             _device_kernels(prof), wall)
+
+    ladder = [same_op_ladder()]
+    for block in (None,) + PREFIX_BLOCKS:
+        kw = {} if block is None else dict(prefix_sharing=True,
+                                           layout_block=block)
+
+        def run():
+            srv = make_server(models, params, inflight=1, ops=PREFIX_OPS,
+                              **kw)
+            drive(srv, ladder, sub)
+
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=acts) as prof:
+            run()
+        layout = ("doc-before-op" if block is None
+                  else f"prefix block={block}")
+        _report(f"same-op ladder, {layout}, 8 docs", _device_kernels(prof),
+                wall)
 
 
 def main() -> int:
@@ -930,15 +1307,20 @@ def main() -> int:
           f"ms back to back")
     rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
     kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")
+    prefix_kernel_phase(dev, 32, 8, 64, "llama3.2-1b shapes")
+    prefix_kernel_phase(dev, 16, 8, 128, "qwen3-1.7b shapes")
     launches, models, params, docs = serving_phase()
+    prefix_launches = prefix_serving_phase(models, params, docs)
+    chaos_launches = chaos_phase(models, params)
     build_launches, restr, build_docs, engine, reordered = build_phase()
     rows.append(relevance_phase(dev, timer, restr, build_docs))
     restructure_breakdown(dev, build_docs, reordered)
     if "--profile" in sys.argv[1:]:
         profile_phase(models, params, docs, engine.backends["oracle"])
     for r in rows:
-        # each path's run, counted from zero: serving, then build
-        r["launches"] = launches[r["name"]] + build_launches[r["name"]]
+        # each path's run, counted from zero: serving, prefix, chaos, build
+        r["launches"] = sum(c[r["name"]] for c in (
+            launches, prefix_launches, chaos_launches, build_launches))
         assert r["launches"] > 0, r["name"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

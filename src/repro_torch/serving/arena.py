@@ -45,7 +45,7 @@ tensors in place.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -81,12 +81,24 @@ class BucketArena:
     # host metadata, indexed by slot
     cached_len: np.ndarray = field(default=None)   # padded cached prefix
     true_len: np.ndarray = field(default=None)     # true cached doc tokens
+    # ---- prefix sharing (op-first layout; engine.LMBackend drives these)
+    # A PREFIX ROW is an ordinary arena row holding one operation's token
+    # KV at positions [0, P), prefilled once per (backend, op, bucket) and
+    # then pointed at by the leading block-table columns of every attached
+    # document.  Rows are pinned while referenced (eviction skips them),
+    # reclaimable at refcount zero, and dropped wholesale with the arena
+    # (retire / arena loss) — the memo lives here, not on the backend.
+    prefix_row: Dict[str, int] = field(default_factory=dict)   # op -> row
+    prefix_refs: Dict[int, int] = field(default_factory=dict)  # row -> refs
+    prefix_len: Dict[int, int] = field(default_factory=dict)   # row -> P
+    slot_prefix: Dict[int, int] = field(default_factory=dict)  # slot -> row
+    slot_op: Dict[int, str] = field(default_factory=dict)      # slot -> op
     growths: int = 0               # capacity doublings (telemetry counter:
     #                                each one is a device-side realloc+copy)
     # Optional runtime race detector (analysis.sanitizer.ArenaSanitizer,
     # installed by LMBackend when ARENA_SANITIZE=1 / sanitize=True).  The
-    # arena reports row recycling; the backend brackets launches.  None
-    # (the default) costs nothing.
+    # arena reports row recycling and prefix pin/unpin transitions; the
+    # backend brackets launches.  None (the default) costs nothing.
     sanitizer: Any = field(default=None, repr=False)
 
     def __post_init__(self) -> None:
@@ -134,6 +146,54 @@ class BucketArena:
             self.sanitizer.note_clear(self.bucket, slot)
         self.cached_len[slot] = 0
         self.true_len[slot] = 0
+        self.slot_op.pop(slot, None)
+        assert slot not in self.slot_prefix, \
+            f"slot {slot} re-issued while still attached to a prefix row"
+
+    # ------------------------------------------------------ prefix sharing
+    def attach_prefix(self, slot: int, op_id: str) -> int:
+        """Point a document ``slot`` at ``op_id``'s prefix row (refcounted).
+
+        Idempotent for the same (slot, op); a slot switching ops must be
+        detached first (the engine invalidates the whole cache then).
+        """
+        row = self.prefix_row[op_id]
+        prev = self.slot_prefix.get(slot)
+        if prev is not None:
+            assert prev == row and self.slot_op.get(slot) == op_id, \
+                f"slot {slot} attached to op {self.slot_op.get(slot)!r}, " \
+                f"asked for {op_id!r} (detach first)"
+            return row
+        self.slot_prefix[slot] = row
+        self.slot_op[slot] = op_id
+        self.prefix_refs[row] = self.prefix_refs.get(row, 0) + 1
+        return row
+
+    def detach_prefix(self, slot: int) -> None:
+        """Drop a slot's prefix reference (slot released or invalidated)."""
+        row = self.slot_prefix.pop(slot, None)
+        self.slot_op.pop(slot, None)
+        if row is not None:
+            self.prefix_refs[row] -= 1
+            assert self.prefix_refs[row] >= 0
+
+    def unreferenced_prefix_ops(self):
+        """Ops whose prefix row is currently pinned by no document —
+        reclaimable under pressure (the memo re-prefills on next use)."""
+        return [op for op, row in self.prefix_row.items()
+                if self.prefix_refs.get(row, 0) == 0]
+
+    def drop_prefix(self, op_id: str) -> int:
+        """Forget an (unreferenced) op's prefix row; returns the row so
+        the caller can free its slot."""
+        row = self.prefix_row.pop(op_id)
+        assert self.prefix_refs.get(row, 0) == 0, \
+            f"prefix row {row} ({op_id!r}) dropped while referenced"
+        self.prefix_refs.pop(row, None)
+        self.prefix_len.pop(row, None)
+        if self.sanitizer is not None:
+            self.sanitizer.note_unpin(self.bucket, row)
+        return row
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()

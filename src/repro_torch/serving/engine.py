@@ -66,6 +66,16 @@ contents — because the dense kernels are the same CUDA bodies reading
 row ``b`` for sequence ``b``.  Slot ids are validated once per launch on
 the host, never per layer on the device.
 
+Prefix sharing (``LMBackend.prefix_sharing``, paged plane only): the
+op-first layout.  Each operation's tokens are prefilled ONCE per
+(backend, op, bucket) into a pinned, refcounted arena row; every
+attached document's block table points its leading columns at that row,
+and the partial block where the op remainder meets the document is
+copied into the document's private row at attach time (copy-on-write).
+The kernels read through the block tables, so on CUDA the prefix step
+runs the same hand-written decode and extend kernels as the standard
+step.
+
 Dispatch is asynchronous: ``dispatch_group`` enqueues the step on the
 current CUDA stream and records a ``torch.cuda.Event`` after the logits;
 ``complete_group`` waits on that event.  On the CPU the step runs
@@ -78,10 +88,13 @@ Every submitted document reaches exactly one terminal state —
 ``DocFuture``: failed launches retry solo with capped-exponential
 backoff (``RetryPolicy``), deadlines bound wall-clock, non-finite
 confidences are quarantined, a per-backend circuit breaker reroutes
-stages, a watchdog raises ``ServerStalledError`` instead of spinning,
-and a write-ahead ``RequestJournal`` enables ``CascadeServer.recover``.
-Not ported yet: prefix sharing (``prefix_sharing=True`` raises) and the
-fault injector with its arena-loss events.
+stages, a lost (backend, bucket) arena replays the eviction path (its
+documents re-prefill), a watchdog raises ``ServerStalledError`` instead
+of spinning, and a write-ahead ``RequestJournal`` enables
+``CascadeServer.recover``.  ``serving/faults.py`` injects these faults
+from a seeded plan.  A stage step that raises leaves no visible arena
+state behind: the undo windows are restored in ``finally`` and cached
+lengths advance only after the step returns (``LMBackend._paged_step``).
 """
 from __future__ import annotations
 
@@ -103,8 +116,9 @@ from .arena import BucketArena
 from .scheduler import (FAILED, RESOLVED, TIMED_OUT, DocRequest, LaunchSpec,
                         RequestQueue, RetryPolicy, SchedulingPolicy,
                         ServeStats, SlotAllocator, StageConfig, fraction_len)
-from .telemetry import (EV_ESCALATE, EV_EVICT, EV_LAUNCH, EV_QUARANTINE,
-                        EV_RETRY, EV_SUBMIT, LaunchRecord, Telemetry)
+from .telemetry import (EV_COW_COPY, EV_ESCALATE, EV_EVICT, EV_LAUNCH,
+                        EV_PREFIX_HIT, EV_QUARANTINE, EV_RETRY, EV_SUBMIT,
+                        LaunchRecord, Telemetry)
 
 
 class ServerStalledError(RuntimeError):
@@ -218,7 +232,7 @@ class GroupTicket:
     event: Optional[Any]             # torch.cuda.Event after the logits
     new_d: np.ndarray                # per-doc new true tokens
     cached_d: np.ndarray             # per-doc cached true tokens
-    op_len: int                      # billed op suffix
+    op_len: int                      # billed op suffix (P on prefix plane)
     san: Any                         # ArenaSanitizer or None
     san_ticket: Any                  # open begin_launch bracket (or None)
     timing: Dict[str, float]         # host/dispatch at dispatch; +device
@@ -260,9 +274,24 @@ class LMBackend:
     # $-ledger — billed from token counts — is unchanged.  None stores the
     # compute dtype.
     kv_dtype: Optional[str] = None
-    # Prefix sharing (op-first layout over block tables) is not ported
-    # yet: True raises NotImplementedError.
+    # Opt-in PREFIX SHARING (op-first prompt layout): operation tokens sit
+    # at positions [0, P) and are prefilled ONCE per (backend, op, bucket)
+    # into a pinned refcounted arena row; every attached document's
+    # leading block-table columns point at that row, with a copy-on-write
+    # partial-block copy into the document's private row where the op
+    # remainder and doc tokens share a block.  Requires the paged plane
+    # (block tables).  The default (False) keeps the doc-before-op layout.
     prefix_sharing: bool = False
+    # Layout block of the prefix plane: it stands in for the JAX
+    # package's ``Runtime.block_q`` and ``block_kv`` (both 512 by
+    # default), and sets only the row rounding (``_s_alloc_for``), the
+    # block-table granularity (``_block_size``) and the prefix padding
+    # (``_prefix_eff_len``).  With the same value the port lays out the
+    # same rows, tables and copy-on-write remainders as the reference, so
+    # every document token sits at the same position.
+    layout_block: int = 512
+    prefix_hits: int = 0             # attaches to a shared prefix row
+    cow_copies: int = 0              # partial-block copy-on-write copies
     # Device of the model and its arenas: CUDA unless the caller asks for
     # the CPU ("cuda" raises when no GPU is present).
     device: Any = "cuda"
@@ -271,6 +300,9 @@ class LMBackend:
     _doc_slot: Dict[int, Tuple[int, int]] = field(default_factory=dict)
     _idle: Dict[int, int] = field(default_factory=dict)
     _slot_nbytes: Dict[int, int] = field(default_factory=dict)
+    _prefix_ids: Dict[Tuple[int, str], int] = field(default_factory=dict)
+    _next_prefix_id: int = -1        # pseudo doc ids for prefix rows (< 0,
+    #                                  disjoint from server request ids >= 0)
     pressure_retired: int = 0        # buckets freed mid-eviction (byte budget)
     # host assembly + async dispatch wall-clock; the per-launch
     # decomposition (host/dispatch/device) lives in ``last_timing``
@@ -289,9 +321,6 @@ class LMBackend:
     _sanitizer: Optional[Any] = field(default=None, repr=False)
 
     def __post_init__(self) -> None:
-        if self.prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported to the PyTorch engine yet")
         self.device = resolve_device(self.device)
         if self.device != self.model.device:
             raise ValueError(f"backend {self.name!r} device {self.device} "
@@ -320,6 +349,9 @@ class LMBackend:
         self._alloc.reset()
         self._doc_slot.clear()
         self._idle.clear()
+        self._prefix_ids.clear()
+        self.prefix_hits = 0
+        self.cow_copies = 0
         self.pressure_retired = 0
         self.host_overhead_s = 0.0
         self.last_timing = None
@@ -388,14 +420,26 @@ class LMBackend:
     def live_docs(self) -> List[int]:
         return list(self._doc_slot)
 
+    def cached_op(self, doc_id: int) -> Optional[str]:
+        """Operation id the document's cached prefix was built under
+        (prefix-sharing arenas only; None when uncached/untracked)."""
+        bs = self._doc_slot.get(doc_id)
+        if bs is None:
+            return None
+        bucket, slot = bs
+        ar = self._arenas.get(bucket)
+        return None if ar is None else ar.slot_op.get(slot)
+
     def release(self, doc_id: int) -> None:
         """Free the document's slot (it exited the cascade or was evicted)."""
         bs = self._doc_slot.pop(doc_id, None)
         if bs is not None:
             bucket, slot = bs
             ar = self._arenas.get(bucket)
-            if ar is not None and ar.sanitizer is not None:
-                ar.sanitizer.note_release(bucket, slot)
+            if ar is not None:
+                ar.detach_prefix(slot)     # unpin the shared op-prefix row
+                if ar.sanitizer is not None:
+                    ar.sanitizer.note_release(bucket, slot)
             self._alloc.release(bucket, doc_id)
 
     # ------------------------------------------------------- memory control
@@ -488,6 +532,11 @@ class LMBackend:
         evicted: List[int] = []
         if self.slot_budget is None and self.byte_budget is None:
             return evicted
+        # unreferenced prefix rows go first: dropping the memo costs one
+        # re-prefill later but frees a slot without losing any document's
+        # cache (pinned rows — refs > 0 — are never touched here)
+        if self.over_budget(bucket, need_new):
+            self._reclaim_prefix_rows(bucket)
         for d in victims:
             if not self.over_budget(bucket, need_new):
                 break
@@ -509,10 +558,31 @@ class LMBackend:
             self.release(d)
             evicted.append(d)
             if (self.byte_budget is not None and vb != bucket
-                    and vb in self._arenas and self._alloc.live(vb) == 0):
+                    and vb in self._arenas and self._live_real(vb) == 0):
                 self.retire(vb)
                 self.pressure_retired += 1
         return evicted
+
+    def _live_real(self, bucket: int) -> int:
+        """Live DOCUMENT slots in ``bucket`` (prefix pseudo-slots, which
+        hold shared op rows rather than documents, excluded)."""
+        ar = self._arenas.get(bucket)
+        n_prefix = len(ar.prefix_row) if ar is not None else 0
+        return self._alloc.live(bucket) - n_prefix
+
+    def _reclaim_prefix_rows(self, bucket: int) -> None:
+        """Free every UNREFERENCED prefix row of ``bucket`` (slot returns
+        to the free list; the op re-prefills on next use)."""
+        ar = self._arenas.get(bucket)
+        if ar is None:
+            return
+        for op_key in ar.unreferenced_prefix_ops():
+            row = ar.drop_prefix(op_key)   # arena hook unpins for sanitizer
+            if ar.sanitizer is not None:
+                ar.sanitizer.note_release(bucket, row)
+            pid = self._prefix_ids.pop((bucket, op_key), None)
+            if pid is not None:
+                self._alloc.release(bucket, pid)
 
     def note_launch(self) -> int:
         """Bucket retirement hook, called once per server step (on every
@@ -525,7 +595,7 @@ class LMBackend:
         """
         retired = 0
         for bucket in list(self._arenas):
-            if self._alloc.live(bucket) == 0:
+            if self._live_real(bucket) == 0:
                 self._idle[bucket] = self._idle.get(bucket, 0) + 1
                 if self._idle[bucket] >= self.retire_after:
                     self.retire(bucket)
@@ -535,9 +605,12 @@ class LMBackend:
         return retired
 
     def retire(self, bucket: int) -> None:
-        """Free an idle bucket's arena (no live slots)."""
-        assert self._alloc.live(bucket) == 0, \
+        """Free an idle bucket's arena (no live DOCUMENT slots; prefix
+        rows — necessarily unreferenced once the documents are gone — are
+        dropped with it, memo included)."""
+        assert self._live_real(bucket) == 0, \
             f"bucket {bucket} retired with live slots"
+        self._reclaim_prefix_rows(bucket)
         ar = self._arenas.pop(bucket, None)
         if ar is not None and ar.sanitizer is not None:
             ar.sanitizer.note_retire(bucket)
@@ -545,9 +618,22 @@ class LMBackend:
         self._idle.pop(bucket, None)
 
     def _s_alloc_for(self, bucket: int) -> int:
-        # the CUDA kernels mask ragged cache lengths themselves, so the row
-        # needs no rounding to a kernel tile
-        return bucket + self.op_reserve
+        s_alloc = bucket + self.op_reserve
+        # The CUDA kernels mask ragged cache lengths themselves, so the
+        # doc-before-op row needs no rounding.  Prefix sharing rounds the
+        # row to a layout block multiple: block tables are full-width
+        # [B, s_alloc // block] (``kernels.ops`` requires the width to
+        # divide the cache axis), as in the reference.
+        if self.prefix_sharing:
+            blk = self.layout_block
+            if s_alloc > blk:           # <= blk is always a single block
+                s_alloc = -(-s_alloc // blk) * blk
+        return s_alloc
+
+    def _block_size(self, bucket: int) -> int:
+        """Block-table granularity for ``bucket``: the layout block,
+        clamped to the row length."""
+        return min(self.layout_block, self._s_alloc_for(bucket))
 
     def _arena(self, bucket: int) -> BucketArena:
         ar = self._arenas.get(bucket)
@@ -578,7 +664,13 @@ class LMBackend:
     def uses_paged_kv(self) -> bool:
         """Resolve the ``paged`` switch (None = auto): the paged stage step
         needs a paged-capable model and pays off where the kernels read
-        slots in place, i.e. on CUDA."""
+        slots in place, i.e. on CUDA.  Prefix sharing lives on block
+        tables, so it forces the paged plane (on the CPU the kernels'
+        plain versions gather the table's rows per call)."""
+        if self.prefix_sharing:
+            if self.paged is None:
+                self.paged = True
+            assert self.paged, "prefix_sharing requires the paged data plane"
         if self.paged is None:
             self.paged = bool(self.device.type == "cuda"
                               and self.model.supports_paged_kv)
@@ -616,6 +708,11 @@ class LMBackend:
         # kernels read arena rows through slot ids.
         model, params = self.model, self.params
         if new_tok.shape[1] > 0:
+            # A raise in here leaves written only positions [c_len, f_len)
+            # of the rows.  Those lie at or above each row's committed
+            # ``cached_len``, which ``dispatch_group`` advances only after
+            # the step returns, so no later read sees them: the op-suffix
+            # window below is the only state a failed step must undo.
             model.extend(params, {"tokens": new_tok}, arena_states,
                          q_offset=c_len, kv_len=ext_true, slots=slots)
         # operation suffix: masked decode steps run IN PLACE over the
@@ -624,16 +721,163 @@ class LMBackend:
         # fraction can undershoot the padded cache) — so the window is
         # snapshotted first and restored after: an O(B * op_len) undo log
         # instead of an O(B * s_alloc) row copy, and the arena leaves the
-        # step bitwise identical to the gather path's.
+        # step bitwise identical to the gather path's.  The restore runs
+        # in ``finally``: a step that raises mid-suffix leaves the rows as
+        # they were (commit on success, as the reference's rebinding of
+        # the arena after a returned step does).
         logits = None
         B = slots.shape[0]
         saved = model.take_kv_window(arena_states, slots, kv_true, op_len)
-        for t in range(op_len):
-            tok = op_tok[t].expand(B)
-            logits, _ = model.decode_step(params, tok, arena_states,
-                                          kv_true + t, slots=slots)
-        model.put_kv_window(arena_states, slots, kv_true, op_len, saved)
+        try:
+            for t in range(op_len):
+                tok = op_tok[t].expand(B)
+                logits, _ = model.decode_step(params, tok, arena_states,
+                                              kv_true + t, slots=slots)
+        finally:
+            model.put_kv_window(arena_states, slots, kv_true, op_len, saved)
         return logits
+
+    def _prefix_step(self, arena_states, slots, block_tables, new_tok,
+                     last_tok, kv_true, ext_true, *, c_len: int, p_len: int):
+        # OP-FIRST layout: the shared operation prefix occupies cache
+        # positions [0, p_len) — prefilled once into a pinned arena row
+        # that the leading block-table columns point at — and the document
+        # lives at [p_len, p_len + f_len).  Writes (extend, readout token)
+        # land in the document's own row (``slots``); reads resolve
+        # through ``block_tables``.  As in ``_paged_step``, a raise inside
+        # the extend writes only positions past the committed cache.
+        model, params = self.model, self.params
+        if new_tok.shape[1] > 0:
+            model.extend(params, {"tokens": new_tok}, arena_states,
+                         q_offset=p_len + c_len, kv_len=p_len + ext_true,
+                         slots=slots, block_tables=block_tables)
+        # readout: re-feed the LAST TRUE document token at its own position
+        # and take its logits as the class readout — rows are ragged, so
+        # the extend's final-position logits belong to bucket PAD for short
+        # documents.  The re-fed token overwrites one KV position with
+        # decode-path values; a width-1 undo window, restored in
+        # ``finally``, keeps the cached row bitwise pristine.
+        pos = p_len + kv_true - 1
+        saved = model.take_kv_window(arena_states, slots, pos, 1)
+        try:
+            logits, _ = model.decode_step(params, last_tok, arena_states,
+                                          pos, slots=slots,
+                                          block_tables=block_tables)
+        finally:
+            model.put_kv_window(arena_states, slots, pos, 1, saved)
+        return logits
+
+    def _enqueue(self, arena: BucketArena, signature, reads, writes, step,
+                 *args, **kwargs):
+        """Run ``step`` under an open sanitizer bracket and record the
+        completion event after its logits.  Returns (logits, event,
+        sanitizer ticket); the bracket closes here only if the step
+        raises."""
+        san = arena.sanitizer
+        ticket = None
+        if san is not None:
+            ticket = san.begin_launch(arena.bucket, signature, reads=reads,
+                                      writes=writes,
+                                      scratch=arena.scratch_slot)
+        try:
+            with torch.no_grad():
+                logits = step(*args, **kwargs)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+        except BaseException:
+            if san is not None:
+                san.end_launch(ticket)
+            raise
+        return logits, event, ticket
+
+    # ------------------------------------------------------- prefix sharing
+    def prefix_slot_needed(self, bucket: int, op_id: Optional[str]) -> bool:
+        """Would the next launch of ``op_id`` in ``bucket`` allocate a
+        fresh prefix row?  (The server's budget pass counts it as one
+        more new slot.)"""
+        if not self.prefix_sharing or op_id is None:
+            return False
+        ar = self._arenas.get(bucket)
+        return ar is None or op_id not in ar.prefix_row
+
+    def _ensure_prefix_row(self, arena: BucketArena, bucket: int,
+                           op_key: str, op_tokens: np.ndarray) -> int:
+        """Memoized op-prefix prefill: the first launch of ``op_key`` in
+        this bucket prefills the operation tokens ONCE into a dedicated
+        arena row (positions [0, P)); later launches just point their
+        block tables at it.  The row is allocated through the shared
+        ``SlotAllocator`` under a NEGATIVE pseudo doc id, so it can never
+        collide with a document slot but stays invisible to
+        ``live_docs()``/eviction (pinned while referenced).  The memo is
+        recorded only once the prefill has returned: a prefill that
+        raises frees the row, and the next launch of the op starts over."""
+        row = arena.prefix_row.get(op_key)
+        if row is not None:
+            return row
+        pid = self._prefix_ids.get((bucket, op_key))
+        if pid is None:
+            pid = self._next_prefix_id
+            self._next_prefix_id -= 1
+            self._prefix_ids[(bucket, op_key)] = pid
+        row = self._alloc.slot_of(bucket, pid)
+        arena.ensure_capacity(self._alloc.high_water(bucket))
+        arena.clear_slot(row)
+        san = arena.sanitizer
+        if san is not None:
+            san.note_alloc(bucket, row, pid)
+        P = len(op_tokens)
+        # prefill the EFFECTIVE prefix [0, P_eff): op tokens plus PAD up
+        # to the blocking boundary (see _prefix_eff_len) — the pad gap's
+        # KV is deterministic and shared, so every document sees
+        # identical values
+        p_eff = self._prefix_eff_len(P)
+        tok = np.full((1, p_eff), PAD, np.int32)
+        tok[0, :P] = op_tokens
+        ticket = None
+        if san is not None:
+            ticket = san.begin_launch(
+                bucket, (self.name, "prefix_prefill", op_key, bucket),
+                reads={row}, writes={row}, scratch=arena.scratch_slot)
+        ok = False
+        try:
+            with torch.no_grad():
+                self.model.extend(
+                    self.params, {"tokens": self._to_device(tok)},
+                    arena.states, q_offset=0,
+                    kv_len=self._to_device(np.asarray([p_eff], np.int32)),
+                    slots=self._to_device(np.asarray([row], np.int32)))
+            ok = True
+        finally:
+            if san is not None:
+                san.end_launch(ticket)
+            if not ok:
+                if san is not None:
+                    san.note_release(bucket, row)
+                self._alloc.release(bucket, pid)
+        arena.prefix_row[op_key] = row
+        arena.prefix_refs[row] = 0
+        arena.prefix_len[row] = P
+        if san is not None:
+            san.note_pin(bucket, row, op_key)
+        return row
+
+    def _prefix_eff_len(self, P: int) -> int:
+        """Layout length of an op prefix: the reference pads ``P`` up
+        until it is within one attention block or a block multiple, so the
+        document starts at an offset its blocking can address.  With
+        ``layout_block`` standing in for both of the reference's blocks,
+        an op no longer than a block keeps ``P_eff == P`` (it shares via
+        the copy-on-write remainder) and a longer one rounds up to a block
+        multiple (it shares via whole block-table columns).  ``P_eff``
+        moves every document token's position, so it must equal the
+        reference's for the same block."""
+        blk = self.layout_block
+        p_eff = P if P <= blk else -(-P // blk) * blk
+        assert p_eff <= self.op_reserve, \
+            f"op prefix pads to {p_eff} > op_reserve ({self.op_reserve})"
+        return p_eff
 
     # ----------------------------------------------------- paged accounting
     def gather_bytes_per_launch(self, bucket: int, batch: int) -> int:
@@ -727,7 +971,9 @@ class LMBackend:
         ``complete_group``.  Host bookkeeping that does not depend on
         device results — billing token counts, cached-length advances,
         structural traffic, slot-range validation — happens here.
-        ``op_id`` is accepted for signature parity with prefix sharing.
+        ``op_id`` names the operation for the prefix-sharing memo; callers
+        that don't thread one get a content-derived key (same tokens ==
+        same prefix row either way).
 
         Every launch is padded to ``width`` rows (the server's batch
         size; scratch rows fill the rest), so every matrix product's
@@ -736,6 +982,13 @@ class LMBackend:
         keeps each document's numbers independent of its cohort: results
         are bitwise schedule-independent (inflight=K == inflight=1).
         """
+        if self.prefix_sharing:
+            op_key = op_id if op_id is not None else \
+                "op:" + ",".join(str(int(t)) for t in op_tokens)
+            return self._dispatch_group_prefix(ids, doc_tokens, bucket,
+                                               f_len, fraction, eff_c,
+                                               op_tokens, n_classes,
+                                               op_key, width=width)
         assert len(op_tokens) > 0, "operations must encode to >= 1 token"
         assert len(op_tokens) <= self.op_reserve, \
             f"operation longer than op_reserve ({len(op_tokens)})"
@@ -778,29 +1031,14 @@ class LMBackend:
         step = self._paged_step if self.uses_paged_kv() else \
             self._gather_step
         t2 = time.perf_counter()
-        san = arena.sanitizer
-        ticket = None
-        if san is not None:
-            ticket = san.begin_launch(
-                bucket, (self.name, "step", bucket, eff_c, f_len, B),
-                reads=set(slots), writes=set(slots),
-                scratch=arena.scratch_slot)
-        try:
-            with torch.no_grad():
-                logits = step(
-                    arena.states, self._to_device(slots_arr),
-                    self._to_device(new_tok),
-                    self._to_device(np.asarray(op_tokens, np.int32)),
-                    self._to_device(kv_true), self._to_device(ext_true),
-                    c_len=eff_c, op_len=op_len)
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-        except BaseException:
-            if san is not None:
-                san.end_launch(ticket)
-            raise
+        logits, event, ticket = self._enqueue(
+            arena, (self.name, "step", bucket, eff_c, f_len, B),
+            set(slots), set(slots), step,
+            arena.states, self._to_device(slots_arr),
+            self._to_device(new_tok),
+            self._to_device(np.asarray(op_tokens, np.int32)),
+            self._to_device(kv_true), self._to_device(ext_true),
+            c_len=eff_c, op_len=op_len)
         t3 = time.perf_counter()
         self.host_overhead_s += t3 - t2    # async dispatch
         self._note_launch_traffic(bucket, B, op_len, n_new, kv_true)
@@ -812,7 +1050,161 @@ class LMBackend:
         return GroupTicket(
             ids=list(ids), bucket=bucket, width=Bp, n_classes=n_classes,
             logits=logits, event=event, new_d=new_d,
-            cached_d=cached_d, op_len=op_len, san=san, san_ticket=ticket,
+            cached_d=cached_d, op_len=op_len, san=arena.sanitizer,
+            san_ticket=ticket,
+            timing={"host": t1 - t0, "dispatch": t3 - t2},
+            ts_enqueue=t2, ts_dispatched=t3,
+            copy_bytes=self.last_copy_bytes,
+            hbm_bytes=self.last_hbm_bytes)
+
+    def _dispatch_group_prefix(self, ids, doc_tokens, bucket, f_len,
+                               fraction, eff_c, op_tokens, n_classes,
+                               op_key, *, width: int) -> GroupTicket:
+        """Prefix-sharing twin of the standard ``dispatch_group`` body:
+        op-first layout, block-table indirection, memoized op prefill,
+        one readout decode instead of a per-launch op-suffix decode loop
+        (only the width-1 readout window is saved/restored, inside the
+        step).  Returns a ``GroupTicket`` with its sanitizer bracket open;
+        the attach-time COW copy and any first-touch op prefill close
+        their own brackets here at dispatch (they touch only the shared
+        row plus this launch's fresh private rows — disjoint from every
+        other open ticket's write set).
+
+        Billing is IDENTICAL to the standard plane — ``new_d = doc
+        segment + op_len`` per document — because $ follows the token
+        accounting contract, not physical work.  Padded rows (up to
+        ``width``) name the scratch row in every table column.
+        """
+        assert len(op_tokens) > 0, "operations must encode to >= 1 token"
+        P = len(op_tokens)
+        assert P <= self.op_reserve, \
+            f"operation longer than op_reserve ({P})"
+        p_eff = self._prefix_eff_len(P)           # layout offset of the doc
+        t0 = time.perf_counter()
+        arena = self._arena(bucket)
+        row = self._ensure_prefix_row(arena, bucket, op_key, op_tokens)
+        assert arena.prefix_len[row] == P, \
+            f"op {op_key!r} re-encoded to a different length"
+        slots = [self._slot_for(bucket, d, arena) for d in ids]
+        B = len(ids)
+        if B > width:
+            raise ValueError(f"launch of {B} documents exceeds width {width}")
+        Bp = width
+        n_new = f_len - eff_c                     # 0 => decode-only launch
+        tb = self._block_size(bucket)
+        nb = arena.s_alloc // tb
+        shared_full = p_eff // tb                 # whole blocks shared
+        rem_start = shared_full * tb
+        rem = p_eff - rem_start                   # partial-block remainder
+
+        # documents not yet attached to the shared row; the partial block
+        # (where the op remainder and the document's first tokens share a
+        # cache block) diverges immediately, so it is copied into their
+        # private rows — the copy-on-write moment — before they attach, so
+        # a copy that raises attaches nothing
+        fresh: List[int] = []
+        for i, d in enumerate(ids):
+            slot = slots[i]
+            if eff_c > 0:
+                assert arena.slot_op.get(slot) == op_key, \
+                    f"doc {d} cached under op {arena.slot_op.get(slot)!r} " \
+                    f"launched as {op_key!r} (server must invalidate)"
+            if arena.slot_prefix.get(slot) is None:
+                fresh.append(slot)
+        san = arena.sanitizer
+        if fresh and rem > 0:
+            n = len(fresh)
+            cow_ticket = None
+            if san is not None:
+                with san.cow(bucket):
+                    cow_ticket = san.begin_launch(
+                        bucket, (self.name, "cow_copy", op_key, bucket),
+                        reads={row}, writes=set(fresh),
+                        scratch=arena.scratch_slot)
+            try:
+                start = self._to_device(np.full(n, rem_start, np.int32))
+                win = self.model.take_kv_window(
+                    arena.states,
+                    self._to_device(np.full(n, row, np.int32)), start, rem)
+                self.model.put_kv_window(
+                    arena.states, self._to_device(np.asarray(fresh,
+                                                             np.int32)),
+                    start, rem, win)
+            finally:
+                if san is not None:
+                    san.end_launch(cow_ticket)
+            self.cow_copies += n
+        for slot in fresh:
+            arena.attach_prefix(slot, op_key)
+        self.prefix_hits += len(fresh)
+        tm = self.telemetry
+        if tm is not None and tm.tracing and fresh:
+            fresh_set = set(fresh)
+            ts = time.perf_counter()
+            for i, d in enumerate(ids):
+                if slots[i] in fresh_set:
+                    tm.event(d, EV_PREFIX_HIT, ts, {"backend": self.name})
+                    if rem > 0:
+                        tm.event(d, EV_COW_COPY, ts, {"backend": self.name})
+
+        slots_arr = np.full(Bp, arena.scratch_slot, np.int32)
+        slots_arr[:B] = slots
+        # full-width table [Bp, s_alloc // tb]: column j is the arena row
+        # holding positions [j*tb, (j+1)*tb) — leading shared columns of
+        # the B real rows hit the pinned prefix row, every other column
+        # the row's own slot (the scratch row for padding)
+        bt = np.repeat(slots_arr[:, None], nb, axis=1)
+        if shared_full > 0:
+            bt[:B, :shared_full] = row
+        _check_slots(bt, arena.capacity + 1, "dispatch_group_prefix")
+        new_tok = np.full((Bp, n_new), PAD, np.int32)
+        last_tok = np.full(Bp, PAD, np.int32)
+        kv_true = np.ones(Bp, np.int32)
+        ext_true = np.ones(Bp, np.int32)
+        new_d = np.zeros(B, np.int64)
+        cached_d = np.zeros(B, np.int64)
+        for i, d in enumerate(ids):
+            toks = doc_tokens[d]
+            slot = slots[i]
+            if n_new > 0:
+                seg = toks[min(eff_c, len(toks)): min(f_len, len(toks))]
+                new_tok[i, : len(seg)] = seg
+                new_d[i] = len(seg)
+                cached_d[i] = min(eff_c, len(toks))
+                ext_true[i] = min(eff_c, len(toks)) + len(seg)
+            else:
+                cached_d[i] = min(int(arena.true_len[slot]),
+                                  self._true_len(toks, fraction))
+            kt = self._true_len(toks, fraction)
+            kv_true[i] = kt
+            last_tok[i] = toks[kt - 1]
+        t1 = time.perf_counter()
+        self.host_overhead_s += t1 - t0
+
+        t2 = time.perf_counter()
+        # block-table columns resolve to slots + the pinned prefix row:
+        # writes land in the private rows, the row is the shared read
+        logits, event, ticket = self._enqueue(
+            arena, (self.name, "prefix_step", op_key, bucket, eff_c, f_len,
+                    B),
+            set(slots) | {row}, set(slots), self._prefix_step,
+            arena.states, self._to_device(slots_arr), self._to_device(bt),
+            self._to_device(new_tok), self._to_device(last_tok),
+            self._to_device(kv_true), self._to_device(ext_true),
+            c_len=eff_c, p_len=p_eff)
+        t3 = time.perf_counter()
+        self.host_overhead_s += t3 - t2    # async dispatch
+        # undo log here is the width-1 readout window, not the op suffix
+        self._note_launch_traffic(bucket, B, 1, n_new, kv_true)
+        if n_new > 0:
+            for i, d in enumerate(ids):
+                slot = slots[i]
+                arena.cached_len[slot] = f_len
+                arena.true_len[slot] = min(f_len, len(doc_tokens[d]))
+        return GroupTicket(
+            ids=list(ids), bucket=bucket, width=Bp, n_classes=n_classes,
+            logits=logits, event=event, new_d=new_d,
+            cached_d=cached_d, op_len=P, san=san, san_ticket=ticket,
             timing={"host": t1 - t0, "dispatch": t3 - t2},
             ts_enqueue=t2, ts_dispatched=t3,
             copy_bytes=self.last_copy_bytes,
@@ -1053,6 +1445,7 @@ class CascadeServer:
     breaker_cooldown: int = 8        # launch attempts a breaker stays open
     stall_limit: int = 256           # no-progress steps before stall error
     journal: Optional[RequestJournal] = None    # write-ahead request journal
+    faults: Optional[Any] = None     # FaultInjector (set by install())
     # Observability hub (serving/telemetry.py): metric registry + launch
     # timeline on by default ("counters"); per-doc span traces opt in via
     # level="trace".  Host-side only — the data plane stays bitwise
@@ -1064,9 +1457,10 @@ class CascadeServer:
     # confidences.  1 (default) is bitwise the pre-overlap behavior; K>1
     # hides scheduler/host bookkeeping behind device compute.  Safe by
     # construction: in-flight documents are out of the ready queue (so
-    # concurrent launches own disjoint arena rows) and every structural
-    # path (eviction, reset) drains conflicting tickets first — with the
-    # sanitizer's open brackets auditing exactly that.
+    # concurrent launches own disjoint arena rows), the scheduler vetoes
+    # groups that would touch rows open tickets own, and every structural
+    # path (eviction, arena loss, reset) drains conflicting tickets first
+    # — with the sanitizer's open brackets auditing exactly that.
     inflight: int = 1
     # Device every backend runs on: CUDA unless the caller asks for the
     # CPU ("cuda" raises when no GPU is present).
@@ -1103,6 +1497,8 @@ class CascadeServer:
     _failed_launches: int = field(default=0, repr=False)
     # ---- shared-substrate memory counters (mirrored into query stats)
     _arena_bytes_peak: int = field(default=0, repr=False)
+    _prefix_hits: int = field(default=0, repr=False)
+    _cow_copies: int = field(default=0, repr=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -1119,7 +1515,8 @@ class CascadeServer:
 
     def _doc_info(self, rid: int) -> Optional[Dict[str, Any]]:
         """Owner lookup for arena-sanitizer diagnostics: server request id
-        -> the owning query and caller document ids (None if unknown)."""
+        -> the owning query and caller document ids (None if unknown —
+        e.g. prefix pseudo-ids, which are negative and never submitted)."""
         req = self._requests.get(rid)
         if req is None:
             return None
@@ -1167,6 +1564,8 @@ class CascadeServer:
         self._breaker_trips = 0
         self._failed_launches = 0
         self._arena_bytes_peak = 0
+        self._prefix_hits = 0
+        self._cow_copies = 0
         self.telemetry.clear()          # traces reference dropped requests
         if self.journal is not None:    # dropped queries: journal restarts
             self.journal = RequestJournal()
@@ -1316,7 +1715,12 @@ class CascadeServer:
         if (getattr(be, "slot_budget", None) is None
                 and getattr(be, "byte_budget", None) is None):
             return launch
-        need = sum(1 for d in launch.doc_ids if not be.has_slot(d))
+        # the shared op-prefix row (first launch of this op in this
+        # bucket) is one more fresh slot the budgets must host
+        extra = 1 if (hasattr(be, "prefix_slot_needed")
+                      and be.prefix_slot_needed(launch.bucket, launch.op_id)
+                      ) else 0
+        need = sum(1 for d in launch.doc_ids if not be.has_slot(d)) + extra
         if not be.over_budget(launch.bucket, need):
             return launch
         victims = self._victim_order(be, set(launch.doc_ids))
@@ -1348,7 +1752,7 @@ class CascadeServer:
         # trim: keep the oldest prefix whose new allocations fit (>= 1 doc)
         keep_ids: List[int] = []
         keep_stages: List[int] = []
-        used = 0
+        used = extra        # the prefix row allocates regardless of trim
         for d, s in zip(launch.doc_ids, launch.stages):
             cost = 0 if be.has_slot(d) else 1
             if keep_ids and used + cost > room:
@@ -1407,7 +1811,8 @@ class CascadeServer:
             t_pick = time.perf_counter() if dispatched else t_begin
             launch = self._queue.next_launch(
                 self._stage_of, self.batch_size, policy=self.policy,
-                now=t_pick)
+                now=t_pick,
+                blocked=self._inflight_blocked if self._flights else None)
             t_sched = time.perf_counter()
             if launch is None:
                 break
@@ -1448,6 +1853,25 @@ class CascadeServer:
             self._note_progress(bool(terminal) or dispatched)
         return terminal
 
+    def _inflight_blocked(self, key) -> bool:
+        """Scheduler veto for overlapped dispatch: True if co-scheduling
+        this signature group next to the OPEN tickets could touch rows a
+        ticket owns.  Documents in flight are already out of the ready
+        set, so distinct launches hold disjoint private rows by
+        construction; the shared surface is the prefix-sharing plane's
+        pinned op row — a FIRST-TOUCH prefill writes that row's bucket
+        arena in place, so a group needing one is held back until the
+        bucket's open tickets complete.  Attaching to an existing row is
+        a shared read and co-schedules freely."""
+        model, op_id, blen = key[0], key[1], key[3]
+        be = self.backends[model]
+        if not getattr(be, "prefix_sharing", False):
+            return False
+        if not any(f.launch.model == model and f.launch.bucket == blen
+                   for f in self._flights):
+            return False
+        return bool(be.prefix_slot_needed(blen, op_id))
+
     def _room_needed(self, be, launch: LaunchSpec) -> bool:
         """Whether ``_make_room`` would have to evict for this launch
         (same budget arithmetic, zero side effects) — the dispatch loop
@@ -1455,12 +1879,16 @@ class CascadeServer:
         if (getattr(be, "slot_budget", None) is None
                 and getattr(be, "byte_budget", None) is None):
             return False
-        need = sum(1 for d in launch.doc_ids if not be.has_slot(d))
+        extra = 1 if (hasattr(be, "prefix_slot_needed")
+                      and be.prefix_slot_needed(launch.bucket, launch.op_id)
+                      ) else 0
+        need = sum(1 for d in launch.doc_ids if not be.has_slot(d)) + extra
         return bool(be.over_budget(launch.bucket, need))
 
     def _complete_flights(self, terminal: List[Tuple[int, int]]) -> None:
         """Drain every in-flight launch (FIFO) ahead of a structural
-        operation that could touch open tickets' rows (eviction)."""
+        operation that could touch open tickets' rows (eviction, arena
+        loss)."""
         while self._flights:
             self._complete_one(terminal)
 
@@ -1481,8 +1909,9 @@ class CascadeServer:
         try:
             p, c, new_d, cached_d = be.complete_group(fl.group)
         except Exception as exc:        # noqa: BLE001 — isolate the launch
-            # device errors surface at sync, so retry/terminal stamps
-            # postdate the failure
+            # faults surface at completion: the injector's failure raises
+            # here (and real device errors surface at sync), so
+            # retry/terminal stamps postdate the fault events
             self._on_launch_failure(launch, exc, time.perf_counter(),
                                     terminal)
             self._record_flight(fl, ok=False, error=str(exc))
@@ -1527,6 +1956,7 @@ class CascadeServer:
                 if tm.tracing:
                     tm.event(rid, EV_ESCALATE, now,
                              {"to": req.stage, "reason": "threshold"})
+                self._sync_cached_for_stage(req)
                 self._queue.push(req)
         self._launches += 1
         if tm.enabled:
@@ -1545,6 +1975,16 @@ class CascadeServer:
         if retired:
             self._note_retired(retired)
         self._record_flight(fl, ok=True)
+        if self.faults is not None:     # planned arena-loss events, if any
+            losses = self.faults.poll_arena_loss(self._launches,
+                                                 self.backends)
+            if losses and self._flights:
+                # releasing a lost arena's rows would hit open tickets:
+                # drain them first (poll fires at most once — the nested
+                # completions cannot re-enter this branch)
+                self._complete_flights(terminal)
+            for bname, bucket in losses:
+                self._apply_arena_loss(bname, bucket)
 
     def _record_flight(self, fl: _Flight, ok: bool,
                        error: Optional[str] = None) -> None:
@@ -1589,12 +2029,39 @@ class CascadeServer:
         tm.record_launch(rec)
         tm.set_gauge("serve_queue_depth", len(self._queue))
 
+    def _sync_cached_for_stage(self, req: DocRequest) -> None:
+        """Prefix-sharing invalidation on op switch.
+
+        In the op-first layout a document's cached KV was computed
+        ATTENDING TO the operation prefix in front of it, so advancing to
+        a stage that runs a DIFFERENT op on the same prefix-sharing
+        backend makes the whole cache invalid: release the slot and
+        restart from ``cached_len = 0`` (the re-prefill bills as new
+        tokens, exactly like an eviction).  Doc-before-op backends keep
+        their cache — that layout never bakes the op into document KV.
+        """
+        stages = self._handles[req.query_id].stages
+        if req.stage >= len(stages):
+            return
+        model, op_id = stages[req.stage][0], stages[req.stage][1]
+        be = self.backends[model]
+        if not getattr(be, "prefix_sharing", False):
+            return
+        cached_op = be.cached_op(req.doc_id)
+        if cached_op is not None and cached_op != op_id:
+            be.release(req.doc_id)
+            req.cached[model] = 0
+
     def _sync_shared_counters(self) -> None:
         """Refresh shared-substrate memory counters after a launch and
         mirror them into every query's stats (like breaker trips: the
         substrate is shared, so per-query stats report the server-wide
         values and the aggregate counts them once)."""
         tm = self.telemetry
+        self._prefix_hits = sum(getattr(b, "prefix_hits", 0)
+                                for b in self.backends.values())
+        self._cow_copies = sum(getattr(b, "cow_copies", 0)
+                               for b in self.backends.values())
         nbytes = 0
         for name, b in self.backends.items():
             if not hasattr(b, "arena_nbytes"):
@@ -1620,6 +2087,8 @@ class CascadeServer:
         for st in self._query_stats.values():
             st.arena_bytes_peak = self._arena_bytes_peak
             st.sanitizer_checks = san_checks
+            st.prefix_hits = self._prefix_hits
+            st.cow_copies = self._cow_copies
 
     # ------------------------------------------------------- fault handling
     def _finish(self, req: DocRequest, status: str, now: float,
@@ -1669,8 +2138,12 @@ class CascadeServer:
         """Launch-level isolation: the failed cohort's documents retry
         INDIVIDUALLY (solo singleton groups) with capped-exponential
         backoff; retry/deadline budgets exhausted -> FAILED/TIMED_OUT.
-        Backends commit arena state only after a successful step, so
-        there is no partial state to unwind.  Feeds the breaker."""
+        Backends update the arena in place, but a step that raises leaves
+        nothing visible: its undo windows are restored in ``finally``,
+        whatever else it wrote lies past every row's cached length, and
+        cached lengths advance only after the step returns
+        (``LMBackend._paged_step``).  An injected failure never reaches
+        the backend at all.  Feeds the breaker."""
         self._failed_launches += 1
         tm = self.telemetry
         if tm.enabled:
@@ -1735,6 +2208,7 @@ class CascadeServer:
             if tm.tracing:
                 tm.event(req.doc_id, EV_ESCALATE, now,
                          {"to": final, "reason": "quarantine"})
+            self._sync_cached_for_stage(req)
             self._queue.push(req)
         else:
             self._finish(req, FAILED, now,
@@ -1760,10 +2234,36 @@ class CascadeServer:
                 req.stage += 1
                 advanced = True
             if advanced:
+                self._sync_cached_for_stage(req)
                 if self.telemetry.tracing:
                     self.telemetry.event(
                         req.doc_id, EV_ESCALATE, time.perf_counter(),
                         {"to": req.stage, "reason": "breaker"})
+
+    def _apply_arena_loss(self, bname: str, bucket: int) -> None:
+        """Replay the eviction path for every live document of a lost
+        (backend, bucket): slot released, cached prefix zeroed — the
+        next launch re-prefills over a recycled slot, exactly like a
+        budget eviction.  In-flight results already billed are kept."""
+        be = self.backends[bname]
+        tm = self.telemetry
+        if tm.enabled:
+            tm.count("serve_arena_losses_total", 1, backend=bname)
+        for d in list(be.live_docs()):
+            if be._doc_slot[d][0] != bucket:
+                continue
+            lost = be.true_cached_len(d)     # before release zeroes it
+            be.release(d)
+            req = self._requests.get(d)
+            if req is not None and not req.done:
+                req.cached[bname] = 0
+                st = self._query_stats[req.query_id]
+                st.recovered_docs += 1
+                st.re_prefill_tokens += lost
+                if tm.tracing:
+                    tm.event(d, EV_EVICT, time.perf_counter(),
+                             {"backend": bname, "lost_tokens": lost,
+                              "reason": "arena_loss"})
 
     def _note_progress(self, progressed: bool) -> None:
         """Liveness watchdog: ``stall_limit`` consecutive no-progress
@@ -1849,6 +2349,8 @@ class CascadeServer:
         agg.retired_buckets = self._retired
         agg.breaker_trips = self._breaker_trips   # shared, counted once
         agg.arena_bytes_peak = self._arena_bytes_peak
+        agg.prefix_hits = self._prefix_hits       # shared substrate, ditto
+        agg.cow_copies = self._cow_copies
         return agg
 
     @staticmethod

@@ -257,11 +257,6 @@ def test_journal_recover_restores_results():
     assert again.pred == res.pred and again.doc_cost == res.doc_cost
 
 
-def test_prefix_sharing_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        _backend("proxy", _seeded_params()["proxy"], prefix_sharing=True)
-
-
 def test_cpu_run_reports_no_device_roofline():
     from repro_torch.launch.roofline import bandwidth_utilization
     assert bandwidth_utilization(1e9, 1e-3, bw=2e12) == 0.5

@@ -32,6 +32,13 @@ non-zero without printing a result:
             shared columns; 512: a copy-on-write remainder), bitwise equal
             to the same kernels over materialized slot rows and within the
             tolerances of the plain versions, at both models' heads.
+            ``kernels [gemma3-27b shapes, window 1024]``: the dense flash
+            and decode entries at gemma3's heads (32 query / 16 KV,
+            head_dim 128): flash as a 2048-token prefill (the window bites)
+            and a 512-query extend at ``q_offset`` 1536, decode over a full
+            and a partly filled 1024-slot ring; against the plain
+            versions, two calls and each sequence alone bitwise, timed
+            beside SDPA with a boolean window mask and the bound.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -52,6 +59,18 @@ non-zero without printing a result:
             expired deadline), then a crash after four steps and a warm
             restart from the journal; every check printed as a boolean and
             required true.
+            ``gemma3``: full-width gemma3-27b (random bf16 weights, seed 2)
+            cut to 8 layers (``reduced: num_layers 62 -> 8``): ring decode
+            after a 1536-token prefill, and after a 1024 prefill plus a
+            512 extend, against the cacheless forward's logits at the same
+            positions (bound ``GEMMA3_LOGIT_TOL``).  ``serve [gemma3
+            oracle]``: the llama3.2-1b proxy (paged plane) beside that
+            gemma3 oracle (gather plane), two queries over 32 documents,
+            8 of them 990-1024 tokens (bucket 1024, so the op-suffix
+            decode wraps the rings; no bucket longer than the window), a
+            warm-up, then inflight 1 and 3: all resolved, launches
+            matching the server's per plane, inflight=3 == inflight=1
+            bitwise.
 4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
             full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
             norm), bf16, batch 8, paged plane.  Restructure 28 documents
@@ -76,10 +95,11 @@ non-zero without printing a result:
    With ``--profile``: ``torch.profiler`` counts of device kernels, their
    busy time against the wall clock, and the split between our attention
    kernels, cuBLAS products and everything else, for one decode step of
-   each model, one serving run, and the same-op ladder of ``serve
-   [prefix]`` on each layout.
-6. a ``{"kernels": [...]}`` JSON line (launches: the serving, prefix
-   (block 16, inflight 1), chaos and build runs, each counted from zero;
+   each model, one serving run, the same-op ladder of ``serve [prefix]``
+   on each layout, and a gemma3-oracle serving run.
+6. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
+   the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
+   (inflight 1) and build runs, each counted from zero;
    ``relevance_score`` also carries ``stream_ms``), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -142,6 +162,17 @@ PREFIX_OPS = {
                  "affirmed",
 }
 PREFIX_BLOCKS = (16, 512)
+# gemma3-27b: its sliding window, and the depth the model check and the
+# oracle are cut to.  The model check holds ring decode against the
+# cacheless forward: both run bf16 weights and activations, and the two
+# paths round in other places (decode kernel over the ring vs the flash
+# kernel over the sequence), so the logits differ by bf16 rounding
+# carried through 8 layers: measured max 0.029 at a logit std of 1.48 on
+# the H100.  0.1 keeps a 3x margin.  The CPU tests hold the ring paths
+# to the JAX package at f32 1e-5 (tests/test_torch_local_attention.py).
+GEMMA3_WINDOW = 1024
+GEMMA3_LAYERS = 8
+GEMMA3_LOGIT_TOL = 0.1
 # the seeded chaos drain of tests/test_torch_faults.py
 CHAOS_SEED = 23
 CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
@@ -459,6 +490,285 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
     return rows
 
 
+def window_mask(kv_len, Sq, Skv, q_offset, window, dev):
+    """The boolean mask of causal + sliding-window + ``kv_len`` attention
+    (True = visible), [B, 1, Sq, Skv], for SDPA."""
+    m = sdpa_mask(kv_len, Sq, Skv, q_offset, True, dev)
+    kpos = torch.arange(Skv, device=dev)
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    return m & (kpos[None, :] > qpos[:, None] - window)[None, None]
+
+
+def gemma3_kernel_phase(dev, timer):
+    """The dense entry points at gemma3-27b's heads (32 query / 16 KV,
+    head_dim 128, bf16) with its 1024-key window: ``flash_attention`` as a
+    prefill of 2048 queries over 2048 keys (the window bites from query
+    1024 on) and as an extend of 512 queries at ``q_offset`` 1536;
+    ``decode_attention`` over a full ring (every row ``kv_valid`` 1024)
+    and a partly filled one.  Each against its plain version, two calls
+    bitwise equal, each sequence alone (the other rows' K/V zeroed)
+    bitwise equal to its row of the batch; timed beside SDPA with an
+    explicit boolean window mask and the bound.  Returns the rows."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16 = torch.bfloat16
+    Hq, Hkv, Dh, W = 32, 16, 128, GEMMA3_WINDOW
+    label = "gemma3-27b shapes, window 1024"
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    def alone_equal(fn, full, k, v):
+        for b in range(k.shape[0]):
+            kz, vz = torch.zeros_like(k), torch.zeros_like(v)
+            kz[b], vz[b] = k[b], v[b]
+            assert torch.equal(fn(kz, vz)[b], full[b]), \
+                f"{label}: sequence {b} alone differs from the batch"
+
+    rows = []
+    B, Skv = 4, 2048
+    for case, Sq, q_off, kl in (
+            ("prefill Sq=Skv=2048", 2048, 0, [2048, 1900, 1500, 1100]),
+            ("extend Sq=512 at q_offset 1536", 512, 1536,
+             [2048, 2000, 1800, 1537])):
+        q, k, v = rand(B, Sq, Hq, Dh), rand(B, Skv, Hkv, Dh), \
+            rand(B, Skv, Hkv, Dh)
+        kv_len = torch.tensor(kl, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, window=W, q_offset=q_off, kv_len=kv_len)
+        out = ops.attention(q, k, v, **kw)
+        plain = fla.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), plain.float(), **EXTEND_TOL)
+        assert torch.equal(ops.attention(q, k, v, **kw), out), \
+            f"{label}: flash two calls differ"
+        alone_equal(lambda kk, vv: ops.attention(q, kk, vv, **kw), out, k, v)
+        qpos = q_off + np.arange(Sq)
+        lo = np.maximum(qpos - W + 1, 0)
+        pairs = float(sum(np.clip(np.minimum(qpos + 1, n) - lo, 0, None).sum()
+                          for n in kl))
+        keys = float(sum(n - max(q_off - W + 1, 0) for n in kl))
+        f_bytes = keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2 + 4 * B
+        b_ms, b_by = bound(f_bytes, 4.0 * Hq * Dh * pairs)
+        mask = window_mask(kv_len, Sq, Skv, q_off, W, dev)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows.append(dict(
+            name="flash_attention", case=case, max_abs_err=max_err(out, plain),
+            ms=timer.ms(lambda: ops.attention(q, k, v, **kw)),
+            plain_ms=timer.ms(lambda: fla.flash_attention_plain(q, k, v,
+                                                                **kw)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by))
+        del plain, mask
+        # the same call without the window: does the mask cost more than
+        # the pairs it removes?  (visible pairs per microsecond, both ways)
+        nw = dict(kw, window=None)
+        nw_pairs = float(sum(np.clip(np.minimum(qpos + 1, n), 0, None).sum()
+                             for n in kl))
+        nw_ms = timer.ms(lambda: ops.attention(q, k, v, **nw))
+        r = rows[-1]
+        print(f"kernel flash_attention [{label}, {case}]: windowed "
+              f"{pairs / r['ms'] / 1e3:.4g} visible pairs per us "
+              f"({pairs:.4g} pairs), unwindowed {nw_ms:.4f} ms = "
+              f"{nw_pairs / nw_ms / 1e3:.4g} per us ({nw_pairs:.4g} pairs)")
+    B = 8
+    k, v, q = rand(B, W, Hkv, Dh), rand(B, W, Hkv, Dh), rand(B, Hq, Dh)
+    for case, kl in (("full ring, kv_valid 1024", [W] * B),
+                     ("partly filled ring", [W, 1, 300, W - 1, 512, 777, 64,
+                                             1000])):
+        kv_len = torch.tensor(kl, dtype=torch.int32, device=dev)
+        out = ops.decode_attention(q, k, v, kv_len)
+        plain = dec.decode_attention_plain(q, k, v, kv_len)
+        torch.testing.assert_close(out.float(), plain.float(), **DECODE_TOL)
+        assert torch.equal(ops.decode_attention(q, k, v, kv_len), out), \
+            f"{label}: decode two calls differ"
+        alone_equal(lambda kk, vv: ops.decode_attention(q, kk, vv, kv_len),
+                    out, k, v)
+        keys = float(sum(kl))
+        b_ms, b_by = bound(keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2
+                           + 4 * B, 4.0 * Hq * Dh * keys)
+        mask = sdpa_mask(kv_len, 1, W, 0, False, dev)
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        rows.append(dict(
+            name="decode_attention", case=case,
+            max_abs_err=max_err(out, plain),
+            ms=timer.ms(lambda: ops.decode_attention(q, k, v, kv_len)),
+            plain_ms=timer.ms(lambda: dec.decode_attention_plain(q, k, v,
+                                                                 kv_len)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        tol = DECODE_TOL if r["name"] == "decode_attention" else EXTEND_TOL
+        print(f"kernel {r['name']} [{label}, {r['case']}]: max_abs_err "
+              f"{r['max_abs_err']:.3g} (tol atol={tol['atol']:g} "
+              f"rtol={tol['rtol']:g}), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa (window mask) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    print(f"kernels [{label}]: flash (prefill, extend) and decode (full "
+          f"and partly filled ring): two calls and each sequence alone "
+          f"bitwise equal to the batch")
+    return rows
+
+
+def gemma3_model_phase():
+    """Full-width gemma3-27b (d_model 5376, 32/16 heads, head_dim 128,
+    d_ff 21504, vocab 262144, window 1024, qk-norm, embedding scale) cut
+    to 8 layers: one superblock of five local layers and one global, and
+    the two local layers that end the published 62.  Random bf16 weights
+    (seed 2).  Two sequences of 1538 tokens: (a) prefill of 1536 into
+    rings of 1024 and global caches of 2048, (b) prefill of 1024 and an
+    extend of 512 at ``q_offset`` 1024 (the masked ring path), each then
+    two decode steps (the rings wrapped); each decode's logits against
+    the cacheless forward of the sequence up to that token.  Returns the
+    model, its parameters and the kernel launches of the phase."""
+    import dataclasses
+
+    from repro_torch.config import ATTN_FULL, ATTN_LOCAL, resolve
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    full = get_config("gemma3_27b")
+    cfg = dataclasses.replace(full, num_layers=GEMMA3_LAYERS)
+    model = LM(resolve(cfg, tp=1), device="cuda")
+    assert model.kinds == (ATTN_LOCAL,) * 5 + (ATTN_FULL,) + (ATTN_LOCAL,) * 2
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.sliding_window) == (
+        5376, 32, 16, 128, 21504, 262144, GEMMA3_WINDOW)
+    assert cfg.qk_norm and cfg.embed_scale and model.dtype == torch.bfloat16
+    params = model.init(seed=2)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in _leaves(params))
+    print(f"gemma3: full width (d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {model.rcfg.padded_vocab}, window "
+          f"{cfg.sliding_window}, qk_norm, embed scale), bf16, "
+          f"{n_bytes / 1e9:.2f} GB of random weights")
+    print(f"reduced: num_layers {full.num_layers} -> {cfg.num_layers} "
+          f"(one 5 local + 1 global superblock and the 2-local tail)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(16, 128256, (2, 1538), generator=g, device="cuda")
+
+    def pos(n):
+        return torch.full((2,), n, dtype=torch.int32, device="cuda")
+
+    _zero_counts()
+    errs, stds = [], []
+    with torch.no_grad():
+        for case in ("prefill 1536", "prefill 1024 + extend 512"):
+            if case == "prefill 1536":
+                _, st = model.prefill(params, {"tokens": toks[:, :1536]},
+                                      s_alloc=2048)
+            else:
+                _, st = model.prefill(params, {"tokens": toks[:, :1024]},
+                                      s_alloc=2048)
+                _, st = model.extend(params, {"tokens": toks[:, 1024:1536]},
+                                     st, 1024)
+            assert [layer["k"].shape[1] for layer in st] == \
+                [1024] * 5 + [2048] + [1024] * 2
+            for n in (1536, 1537):
+                dl, st = model.decode_step(params, toks[:, n], st, pos(n))
+                fl, _ = model.prefill(params, {"tokens": toks[:, :n + 1]})
+                assert torch.isfinite(dl).all() and dl.shape == fl.shape
+                err = max_err(dl, fl)
+                errs.append(err)
+                stds.append(float(fl.float().std()))
+                print(f"gemma3 [{case}, decode at position {n}]: max "
+                      f"|logit - full forward| {err:.4g} (logit std "
+                      f"{stds[-1]:.4g}; tol {GEMMA3_LOGIT_TOL:g}), argmax "
+                      f"equal {bool((dl.argmax(-1) == fl.argmax(-1)).all())}")
+                assert err <= GEMMA3_LOGIT_TOL, (case, n, err)
+    torch.cuda.synchronize()
+    counts = _counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    print(f"gemma3: ring decode == full forward within tol at 4 positions "
+          f"(max error {max(errs):.4g}); kernel launches "
+          f"{json.dumps(counts)}")
+    return model, params, counts
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
+def gemma3_docs(tokz):
+    """32 documents: 24 of the serving corpus (190-716 tokens) and 8 of
+    990-1024 tokens (bucket 1024), whose op-suffix decode steps run past
+    position 1024 and so wrap the oracle's rings."""
+    from repro_torch.data.documents import generate_corpus
+
+    docs = {d.doc_id: d.text for d in generate_corpus(24, seed=0)}
+    words = " ".join(d.text for d in generate_corpus(
+        24, avg_lines=60, seed=9)).split()
+    for i, n in enumerate(np.linspace(990, 1024, 8).astype(int)):
+        text = " ".join(words[i * 1100: i * 1100 + n])
+        assert len(tokz.encode(text)) == n
+        docs[100 + i] = text
+    assert len(docs) == 32
+    return docs
+
+
+def gemma3_serving_phase(models, params, g_model, g_params):
+    """``serve [gemma3 oracle]``: the serving phase's full-width
+    llama3.2-1b proxy (paged plane) beside the 8-layer full-width gemma3
+    oracle (gather plane: ring caches are not paged), two queries over
+    ``gemma3_docs``: the first tenant cascade, and a proxy screen with
+    impossible thresholds, so every document reaches the oracle.  A
+    warm-up drain, then inflight 1 and 3, launch counters zeroed before
+    each drain and read after; every bucket served is at most the
+    window.  Returns the inflight=1 counts."""
+    from repro_torch.core.tasks import Cascade, Task, TaskConfig
+
+    ms = {"proxy": models["proxy"], "oracle": g_model}
+    ps = {"proxy": params["proxy"], "oracle": g_params}
+    cascades = [tenant_cascades()[0],
+                Cascade([Task(TaskConfig("proxy", "sur_court", 0.25),
+                              {0: 2.0, 1: 2.0})])]
+    docs = None
+    runs = {}
+    for label, inflight in (("warm-up", 1), ("inflight=1", 1),
+                            ("inflight=3", 3)):
+        srv = make_server(ms, ps, inflight=inflight)
+        if docs is None:
+            docs = gemma3_docs(srv.backends["proxy"].tokenizer)
+            n_long = sum(990 <= len(t.split()) <= 1024
+                         for t in docs.values())
+            assert n_long >= 8
+        assert srv.backends["proxy"].uses_paged_kv()
+        assert not srv.backends["oracle"].uses_paged_kv()
+        results, counts, wall = drive(srv, cascades, docs)
+        assert_resolved(results, docs)
+        check_launches(srv, counts)
+        oracle_buckets = sorted({rec.bucket
+                                 for rec in srv.telemetry.launches.items()
+                                 if rec.model == "oracle"})
+        assert oracle_buckets and max(oracle_buckets) == GEMMA3_WINDOW
+        n = sum(len(r.status) for r in results.values())
+        p50, p99 = latency_ms(results)
+        at_oracle = sum(s == len(c.tasks) for r, c in zip(
+            results.values(), cascades) for s in r.exit_stage.values())
+        print(f"serve [gemma3 oracle, {label}]: {n} docs terminal and "
+              f"RESOLVED in {wall:.3f} s ({n / wall:.2f} docs/s), "
+              f"{srv.stats().batches} launches, latency p50 {p50:.1f} ms "
+              f"p99 {p99:.1f} ms, {at_oracle} resolved by the oracle in "
+              f"buckets {oracle_buckets}, kernel launches "
+              f"{json.dumps(counts)}")
+        runs[label] = ({q: (r.pred, r.conf, r.doc_cost)
+                        for q, r in results.items()}, counts)
+    assert runs["inflight=3"][0] == runs["inflight=1"][0], \
+        "gemma3 oracle: inflight 3 != 1"
+    print(f"serve [gemma3 oracle]: inflight=3 == inflight=1 bitwise (preds, "
+          f"confs, per-document $) over {len(docs)} docs, "
+          f"{n_long} of 990-1024 tokens")
+    return runs["inflight=1"][1], cascades, docs
+
+
 def tenant_cascades():
     from repro_torch.core.tasks import Cascade, Task, TaskConfig
     return [
@@ -525,27 +835,35 @@ def drive(srv, cascades, docs):
     return {h.query_id: h.result() for h in handles}, _counts(), wall
 
 
-def check_launches(srv, counts, *, paged: bool = True, prefills: int = 0):
-    """The kernel counters against the server's launches.  A standard
-    stage launch runs one flash extend per layer when it has new tokens
-    and one decode per layer per operation token; a prefix-plane launch
-    one decode per layer (the readout), and each op-prefix prefill one
-    flash extend per layer.  Launches that failed ran no step."""
-    want_flash = want_decode = 0
+def check_launches(srv, counts, *, prefills: int = 0):
+    """The kernel counters against the server's launches, per backend
+    plane (paged entry points on the paged plane, dense ones on the
+    gather plane).  A standard stage launch runs one flash extend per
+    layer when it has new tokens and one decode per layer per operation
+    token; a prefix-plane launch one decode per layer (the readout), and
+    each op-prefix prefill one flash extend per layer (``prefills``
+    counts those, on the paged plane).  Launches that failed ran no
+    step."""
+    want = {"paged_flash_attention": 0, "paged_decode_attention": 0,
+            "flash_attention": 0, "decode_attention": 0}
+    planes = set()
     for rec in srv.telemetry.launches.items():
         if not rec.ok:
             continue
         be = srv.backends[rec.model]
+        pre = "paged_" if be.uses_paged_kv() else ""
+        planes.add(pre)
         n_layers = be.model.num_layers
         if rec.f_len > rec.cached_len:
-            want_flash += n_layers
-        want_decode += n_layers * (1 if be.prefix_sharing else len(
-            be.tokenizer.encode(srv.operations[rec.op_id])))
-    want_flash += prefills
-    fl_key = "paged_flash_attention" if paged else "flash_attention"
-    de_key = "paged_decode_attention" if paged else "decode_attention"
-    assert counts[fl_key] == want_flash > 0, (counts, want_flash)
-    assert counts[de_key] == want_decode > 0, (counts, want_decode)
+            want[pre + "flash_attention"] += n_layers
+        want[pre + "decode_attention"] += n_layers * (
+            1 if be.prefix_sharing else len(
+                be.tokenizer.encode(srv.operations[rec.op_id])))
+    want["paged_flash_attention"] += prefills
+    for k, n in want.items():
+        assert counts[k] == n, (k, counts, want)
+    assert planes and all(want[p + "decode_attention"] > 0 for p in planes)
+    assert want["flash_attention"] + want["paged_flash_attention"] > 0
 
 
 def assert_resolved(results, docs):
@@ -565,7 +883,8 @@ def serve_once(models, params, docs, *, paged: bool, inflight: int):
     srv = make_server(models, params, inflight=inflight, paged=paged)
     results, counts, wall = drive(srv, tenant_cascades(), docs)
     assert_resolved(results, docs)
-    check_launches(srv, counts, paged=paged)
+    assert all(be.uses_paged_kv() == paged for be in srv.backends.values())
+    check_launches(srv, counts)
     n = sum(len(r.status) for r in results.values())
     p50, p99 = latency_ms(results)
     label = f"{'paged' if paged else 'gather'} inflight={inflight}"
@@ -1222,16 +1541,34 @@ def _profile_decode_step(model, p, label: str) -> None:
             f"{model.num_layers} layers", _device_kernels(prof), wall)
 
 
-def profile_phase(models, params, docs, oracle) -> None:
+def profile_phase(models, params, docs, oracle, gemma3) -> None:
     """Where the time goes (``--profile``): ``torch.profiler`` device
     kernels of one paged decode step of each model (the llama3.2-1b of
     the serving phase, the qwen3-1.7b oracle of the build phase), of one
-    paged serving run, and of the same-op ladder over the prefix phase's
+    paged serving run, of the same-op ladder over the prefix phase's
     operations on the doc-before-op plane and on the prefix plane at both
-    layout blocks; wall clocks come from runs without the profiler."""
+    layout blocks, and of a gemma3-oracle serving run over 8 of its
+    documents (two of them in bucket 1024); wall clocks come from runs
+    without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    g_model, g_params, g_cascades, g_docs = gemma3
+    ms = {"proxy": models["proxy"], "oracle": g_model}
+    ps = {"proxy": params["proxy"], "oracle": g_params}
+    keep = sorted(g_docs)[:6] + sorted(g_docs)[-2:]
+    g_sub = {d: g_docs[d] for d in keep}
+
+    def g_run():
+        drive(make_server(ms, ps, inflight=1), g_cascades, g_sub)
+
+    t0 = time.perf_counter()
+    g_run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=acts) as prof:
+        g_run()
+    _report("gemma3-oracle serving run, 2 queries x 8 docs, inflight=1",
+            _device_kernels(prof), wall)
     _profile_decode_step(models["proxy"], params["proxy"], "llama3.2-1b")
     _profile_decode_step(oracle.model, oracle.params, "qwen3-1.7b")
 
@@ -1272,6 +1609,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(device_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1309,19 +1647,27 @@ def main() -> int:
     kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")
     prefix_kernel_phase(dev, 32, 8, 64, "llama3.2-1b shapes")
     prefix_kernel_phase(dev, 16, 8, 128, "qwen3-1.7b shapes")
+    gemma3_kernel_phase(dev, timer)
     launches, models, params, docs = serving_phase()
     prefix_launches = prefix_serving_phase(models, params, docs)
     chaos_launches = chaos_phase(models, params)
+    g_model, g_params, _ = gemma3_model_phase()
+    gemma3_launches, g_cascades, g_docs = gemma3_serving_phase(
+        models, params, g_model, g_params)
     build_launches, restr, build_docs, engine, reordered = build_phase()
     rows.append(relevance_phase(dev, timer, restr, build_docs))
     restructure_breakdown(dev, build_docs, reordered)
     if "--profile" in sys.argv[1:]:
-        profile_phase(models, params, docs, engine.backends["oracle"])
+        profile_phase(models, params, docs, engine.backends["oracle"],
+                      (g_model, g_params, g_cascades, g_docs))
     for r in rows:
-        # each path's run, counted from zero: serving, prefix, chaos, build
+        # each path's run, counted from zero: serving, prefix, chaos,
+        # gemma3 oracle, build
         r["launches"] = sum(c[r["name"]] for c in (
-            launches, prefix_launches, chaos_launches, build_launches))
+            launches, prefix_launches, chaos_launches, gemma3_launches,
+            build_launches))
         assert r["launches"] > 0, r["name"]
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

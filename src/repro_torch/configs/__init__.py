@@ -12,12 +12,14 @@ from typing import Dict, List
 from ..config import ModelConfig, reduced
 
 ARCHS: List[str] = [
+    "gemma3_27b",
     "llama3_2_1b",
     "qwen3_1_7b",
 ]
 
 # public ids (dashes) -> module names
 ALIASES: Dict[str, str] = {
+    "gemma3-27b": "gemma3_27b",
     "llama3.2-1b": "llama3_2_1b",
     "qwen3-1.7b": "qwen3_1_7b",
 }

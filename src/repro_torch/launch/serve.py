@@ -16,7 +16,10 @@ paths (preemption + re-prefill; bytes or slots, whichever binds first).
 
 The backends are a llama3.2-1b proxy and a qwen3-1.7b oracle with random
 weights from seeds 1 and 2: reduced (2 layers, vocab 512, f32) by
-default, or at full width in bf16 with ``--full-width``.  ``--device``
+default, or at full width in bf16 with ``--full-width``.
+``build_engine(oracle_arch="gemma3_27b")`` puts the paper's oracle class,
+sliding-window gemma3, behind the proxy instead (on the gather plane:
+its ring caches are not paged).  ``--device``
 defaults to the CUDA device (the hand-written kernels); ``cpu`` runs the
 plain PyTorch versions.
 
@@ -42,8 +45,8 @@ from ..models.runtime import DeviceLike
 from ..serving.engine import (CascadeEngine, CascadeServer, EngineResult,
                               LMBackend, QueryHandle)
 
-# the full-width tokenizer's vocabulary fits both llama3.2-1b (128256)
-# and qwen3-1.7b (151936)
+# the full-width tokenizer's vocabulary fits llama3.2-1b (128256),
+# qwen3-1.7b (151936) and gemma3-27b (262144)
 FULL_VOCAB = 128256
 REDUCED_VOCAB = 512
 

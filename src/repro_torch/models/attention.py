@@ -23,10 +23,32 @@ Attention reads the arena through the paged kernels
 (``ops.attention_paged`` / ``ops.arena_decode_attention``) — no [B, S]
 gather copy.
 
-``qk_norm`` (qwen3) applies a per-head RMS norm to q and k after the
-projections and before RoPE, in every mode.  Sliding-window ring caches,
-cross-attention and M-RoPE are not ported yet and raise
-``NotImplementedError``.
+``qk_norm`` (qwen3, gemma3) applies a per-head RMS norm to q and k after
+the projections and before RoPE, in every mode.
+
+Sliding-window layers (``window > 0``, gemma3's local layers) keep RING
+caches of ``Wn = cache.shape[1]`` slots (``min(window, S_alloc)``):
+absolute position ``p`` lives in slot ``p % Wn``, valid because softmax
+attention is permutation-invariant over the key set once positions are
+baked into the keys.  As in the JAX package:
+
+- ``full`` with a cache builds a ring of ``window`` slots from the last
+  ``min(S, window)`` keys;
+- ``extend`` at ``q_offset == 0`` attends through ``ops.attention(...,
+  window=)`` (the flash kernel on the card), then writes the chunk's last
+  ``min(S, Wn)`` keys into the ring;
+- ``extend`` at ``q_offset > 0`` attends over the ring plus the chunk on a
+  masked plain path (f32 scores ``[B, Hq, S, Wn + S]``; the JAX package
+  computes it outside any kernel too), each ring slot's position rebuilt
+  from its index;
+- ``decode`` writes at ``pos % Wn`` and reads ``min(cache_len + 1, Wn)``
+  slots through ``ops.decode_attention``.
+
+The ring holds whatever the chunk carried, bucket PAD included: a
+document padded past the window keeps pad keys in its ring and the decode
+reads every slot, as the JAX package does (the port keeps its semantics).
+Paged serving (``slots``) takes full attention only.  Cross-attention and
+M-RoPE are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +58,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import NEG_INF
 from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm_apply
 
 
@@ -67,6 +90,52 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).reshape(B, S, h, k)
 
 
+def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, positions: torch.Tensor,
+                modulus: int) -> Dict[str, torch.Tensor]:
+    """Write the chunk's keys into the ring in place: position ``p`` to
+    slot ``p % modulus``.  Only the last ``min(S, Wn)`` positions are
+    written, so no two land in one slot; the JAX package scatters the
+    whole chunk and keeps the last write of each slot, which is the same
+    result (``index_put_`` on CUDA leaves duplicates unspecified)."""
+    ck, cv = cache["k"], cache["v"]
+    keep = min(k.shape[1], ck.shape[1])
+    ring = positions[:, -keep:] % modulus                  # [B, keep]
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    ck[bidx, ring] = k[:, -keep:].to(ck.dtype)
+    cv[bidx, ring] = v[:, -keep:].to(cv.dtype)
+    return cache
+
+
+def _ring_extend(q, k, v, ck, cv, positions, *, window: int, q_offset: int,
+                 kv_len: Optional[torch.Tensor], sm_scale: float
+                 ) -> torch.Tensor:
+    """Sliding-window extend at ``q_offset > 0``: the chunk's queries over
+    the ring (before this chunk's write) plus the chunk, with every key's
+    absolute position (a ring slot's is the largest ``p < q_offset`` with
+    ``p % Wn == slot``).  f32 scores ``[B, Hq, S, Wn + S]``, masked to
+    ``-1e30`` and a full softmax, as the JAX package computes it (a row
+    with no visible key averages every value there, too).  Returns f32."""
+    B, S = q.shape[:2]
+    Wn = ck.shape[1]
+    slot = torch.arange(Wn, device=q.device)
+    kpos = slot + torch.div(q_offset - 1 - slot, Wn,
+                            rounding_mode="floor") * Wn
+    kpos_all = torch.cat([kpos[None].expand(B, Wn),
+                          positions.to(kpos.dtype)], dim=1)   # [B, Wn + S]
+    qpos = positions[..., None]                               # [B, S, 1]
+    kp = kpos_all[:, None, :]
+    valid = (kp <= qpos) & (kp > qpos - window) & (kp >= 0)
+    if kv_len is not None:
+        valid &= kp < kv_len.to(kp.device)[:, None, None]
+    g = q.shape[2] // ck.shape[2]
+    kf = torch.cat([ck.float(), k.float()], 1).repeat_interleave(g, dim=2)
+    vf = torch.cat([cv.float(), v.float()], 1).repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * sm_scale, kf)
+    s = torch.where(valid[:, None], s, NEG_INF)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
+
+
 def attention_apply(
     p: Dict[str, Any],
     x: torch.Tensor,                           # [B, S, D]
@@ -91,11 +160,10 @@ def attention_apply(
     mrope_sections=None,
     kv_ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if window not in (None, 0) or kv_ctx is not None \
-            or mrope_sections is not None:
+    if kv_ctx is not None or mrope_sections is not None:
         raise NotImplementedError(
-            "sliding-window caches, cross-attention and M-RoPE are not "
-            "ported yet")
+            "cross-attention and M-RoPE are not ported yet")
+    local = window is not None and window > 0
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
@@ -111,9 +179,16 @@ def attention_apply(
 
     new_cache = None
     if mode == "full":
-        out = ops.attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        out = ops.attention(q, k, v, causal=causal, window=window,
+                            sm_scale=sm_scale)
         if want_cache:
-            new_cache = {"k": k, "v": v}
+            if local:
+                ck = k.new_zeros((B, window) + k.shape[2:])
+                cv = torch.zeros_like(ck)
+                new_cache = _ring_write({"k": ck, "v": cv}, k, v, positions,
+                                        window)
+            else:
+                new_cache = {"k": k, "v": v}
     elif mode == "extend":
         assert cache is not None
         ck, cv = cache["k"], cache["v"]
@@ -127,6 +202,17 @@ def attention_apply(
                 q, ck, cv, slots, kv_valid=kv_valid,
                 block_tables=block_tables, causal=causal,
                 q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
+        elif local and q_offset == 0:
+            # fresh prefill into a preallocated ring: the windowed kernel
+            # over the chunk itself, then the ring write
+            out = ops.attention(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len, sm_scale=sm_scale)
+            _ring_write(cache, k, v, positions, ck.shape[1])
+        elif local:
+            out = _ring_extend(q, k, v, ck, cv, positions, window=window,
+                               q_offset=q_offset, kv_len=kv_len,
+                               sm_scale=sm_scale).to(x.dtype)
+            _ring_write(cache, k, v, positions, window)
         else:
             # dense extend: write new kv at [q_offset, q_offset + S)
             ck[:, q_offset:q_offset + S] = k.to(ck.dtype)
@@ -153,9 +239,17 @@ def attention_apply(
                 block_tables=block_tables, sm_scale=sm_scale)
         else:
             bidx = torch.arange(B, device=x.device)
-            ck[bidx, cache_len] = k[:, 0].to(ck.dtype)
-            cv[bidx, cache_len] = v[:, 0].to(cv.dtype)
-            out1 = ops.decode_attention(q[:, 0], ck, cv, cache_len + 1,
+            if local:
+                # ring: the token lands in slot pos % Wn; every filled slot
+                # is visible (the ring holds only the last Wn positions)
+                Wn = ck.shape[1]
+                at = positions[:, 0] % Wn
+                kv_valid = torch.clamp(cache_len + 1, max=Wn)
+            else:
+                at, kv_valid = cache_len, cache_len + 1
+            ck[bidx, at] = k[:, 0].to(ck.dtype)
+            cv[bidx, at] = v[:, 0].to(cv.dtype)
+            out1 = ops.decode_attention(q[:, 0], ck, cv, kv_valid,
                                         sm_scale=sm_scale)
         out = out1[:, None]
         new_cache = cache

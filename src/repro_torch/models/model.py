@@ -3,7 +3,11 @@
 The JAX package scans one compiled superblock over layer-stacked
 parameters; here the layers are a Python loop over per-layer parameter
 dicts (``params["layers"][i]``), and serve states are per-layer KV caches
-(``states[i] = {"k": [B, S_alloc, KV, Dh], "v": ...}``).
+(``states[i] = {"k": [B, S_alloc, KV, Dh], "v": ...}``); a sliding-window
+layer's cache is a ring of ``min(sliding_window, S_alloc)`` positions.
+Layer ``i`` has kind ``block_pattern[i % len(block_pattern)]``, the JAX
+package's repetition-major order (gemma3: five local layers, one global,
+repeated, then a local tail).
 
 Entry points, one per serving phase:
 
@@ -34,7 +38,8 @@ States = List[Dict[str, torch.Tensor]]
 
 
 class LM:
-    """Dense full-attention decoder LM (ATTN_FULL blocks, dense FFN)."""
+    """Dense decoder LM: full-attention and sliding-window blocks, dense
+    FFN, optional ``sqrt(d_model)`` embedding scale (gemma3)."""
 
     def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda"):
         blocks.check_supported(rcfg)
@@ -48,6 +53,10 @@ class LM:
     @property
     def num_layers(self) -> int:
         return self.rcfg.base.num_layers
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        return self.rcfg.base.layer_kinds()
 
     # ---------------------------------------------------------------- params
     def init(self, seed: int) -> Dict[str, Any]:
@@ -68,19 +77,21 @@ class LM:
         """Zeroed per-layer KV caches; ``kv_dtype`` overrides the storage
         dtype (bf16 arenas for f32 models)."""
         dt = kv_dtype or self.dtype
-        return [blocks.init_block_state(self.rcfg, batch, s_alloc, dt,
+        return [blocks.init_block_state(self.rcfg, kind, batch, s_alloc, dt,
                                         self.device)
-                for _ in range(self.num_layers)]
+                for kind in self.kinds]
 
     def state_shapes(self, batch: int, s_alloc: int, kv_dtype=None
                      ) -> List[Dict[str, Tuple[Tuple[int, ...],
                                                torch.dtype]]]:
-        """(shape, dtype) of every state leaf, allocating nothing."""
+        """(shape, dtype) of every state leaf, allocating nothing; the
+        shapes ``init_states`` allocates, per layer kind."""
         dt = kv_dtype or self.dtype
-        shape = (batch, s_alloc, self.rcfg.padded_kv_heads,
-                 self.rcfg.head_dim)
-        return [{"k": (shape, dt), "v": (shape, dt)}
-                for _ in range(self.num_layers)]
+        out = []
+        for kind in self.kinds:
+            shape = blocks.state_shape(self.rcfg, kind, batch, s_alloc)
+            out.append({"k": (shape, dt), "v": (shape, dt)})
+        return out
 
     # ------------------------------------------------------- arena state API
     # Every state leaf is batched on axis 0, which is how the serving
@@ -105,8 +116,9 @@ class LM:
     def supports_paged_kv(self) -> bool:
         """True when every layer's serve-state is a full-attention KV
         cache, so the slot arena can be addressed IN PLACE by the paged
-        kernels (``slots=`` on ``extend``/``decode_step``)."""
-        return all(k == ATTN_FULL for k in self.rcfg.base.layer_kinds())
+        kernels (``slots=`` on ``extend``/``decode_step``).  Ring caches
+        (sliding-window layers) keep a model on the gather plane."""
+        return all(k == ATTN_FULL for k in self.kinds)
 
     @staticmethod
     def _kv_window_idx(slots: torch.Tensor, start: torch.Tensor,
@@ -141,9 +153,9 @@ class LM:
                     q_offset=0, kv_len=None, slots=None, block_tables=None,
                     positions=None):
         new_states = []
-        for i, lp in enumerate(params["layers"]):
+        for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
             x, ns = blocks.block_apply(
-                lp, x, rcfg=self.rcfg, mode=mode,
+                lp, x, kind=kind, rcfg=self.rcfg, mode=mode,
                 state=None if states is None else states[i],
                 cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
                 slots=slots, block_tables=block_tables, positions=positions)
@@ -156,7 +168,14 @@ class LM:
         return lm_head_apply(params["embed"], x, b.logit_softcap)[:, 0]
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_apply(params["embed"], tokens).to(self.dtype)
+        x = embed_apply(params["embed"], tokens).to(self.dtype)
+        if self.rcfg.base.embed_scale:
+            # the multiplier rounded to the model dtype first, as the JAX
+            # package multiplies by ``jnp.asarray(sqrt(d), dtype)``
+            scale = torch.tensor(self.rcfg.base.d_model ** 0.5,
+                                 dtype=self.dtype).item()
+            x = x * scale
+        return x
 
     # ------------------------------------------------------------ entry pts
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,

@@ -239,11 +239,11 @@ def test_lm_init_is_seeded():
 
 def test_unported_configs_raise():
     import dataclasses
-    from repro_torch.config import ATTN_LOCAL
+    from repro_torch.config import RGLRU
     cfg = t_get_reduced("llama3_2_1b", dtype="float32", vocab_size=512,
                         num_layers=2)
     with pytest.raises(NotImplementedError):
-        TLM(t_resolve(dataclasses.replace(cfg, block_pattern=(ATTN_LOCAL,)),
+        TLM(t_resolve(dataclasses.replace(cfg, block_pattern=(RGLRU,)),
                       tp=1), device="cpu")
     with pytest.raises(NotImplementedError):
         TLM(t_resolve(dataclasses.replace(cfg, mrope_sections=(4, 6, 6)),

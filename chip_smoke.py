@@ -10,10 +10,11 @@ non-zero without printing a result:
             the hand-written kernels are built from ``csrc/`` (one ``nvcc``
             per source, all at once) and their registers and spills are
             printed (decode and flash attention per kernel and head_dim;
-            at head_dim 64 and 128 the decode kernels and the extend
-            tensor-core body must not spill; ``relevance_score`` must not
-            spill at any width); then the timer's floor, an empty
-            launch timed per call and back to back.
+            the decode kernels and the extend tensor-core body must not
+            spill at head_dim 64, 128 and 256;
+            ``relevance_score`` must not spill at any width); then the
+            timer's floor, an empty launch timed per call and back to
+            back.  Each phase's wall is printed as ``phase <name>: wall``.
 2. kernels  every attention entry point at main-path shapes (B=8, bf16
             arena, buckets 256..1024, slots with the scratch sentinel
             repeated, block tables) twice: at llama3.2-1b's heads (32 query
@@ -39,6 +40,13 @@ non-zero without printing a result:
             and a partly filled 1024-slot ring; against the plain
             versions, two calls and each sequence alone bitwise, timed
             beside SDPA with a boolean window mask and the bound.
+            ``kernels [recurrentgemma-2b shapes, head_dim 256, window
+            2048]``: the same at 10 query / 1 KV heads, head_dim 256: flash
+            as a 4096-token prefill (B=2) and a 512-query extend at
+            ``q_offset`` 3584, decode over a full and a partly filled
+            2048-slot ring.  Then the four entry points again at
+            qwen2-vl-2b's heads (12 / 2, head_dim 128) and phi3.5-moe's
+            (32 / 8, head_dim 128).
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -71,6 +79,23 @@ non-zero without printing a result:
             warm-up, then inflight 1 and 3: all resolved, launches
             matching the server's per plane, inflight=3 == inflight=1
             bitwise.
+            ``models [families]``: qwen2-vl-2b (28 layers), phi3.5-moe cut
+            to 16 layers (``reduced: num_layers 32 -> 16``), xlstm-350m
+            (24) and recurrentgemma-2b (26), full width, random bf16
+            weights: the serve path's logits against the cacheless
+            forward (``family_model_phase``).  ``serve [moe oracle]``:
+            the qwen2-vl proxy and the phi3.5-moe oracle on the paged
+            plane, the two tenant cascades over the serving corpus, a
+            warm-up, inflight 1 and 3: all resolved, launches matching,
+            inflight=3 == inflight=1 bitwise.  ``serve [recurrent]``: the
+            xlstm proxy and the recurrentgemma oracle on the gather plane,
+            the tenants' first stage at fraction 0.5 (at 0.25 a bucket-512
+            document would extend the mLSTM by 384 tokens, which the
+            reference's chunking refuses): all resolved, launches
+            matching, two inflight=1 runs bitwise equal, and the count of
+            results that differ at inflight 3 printed (a recycled row
+            hands its recurrent state to the next document, as in the
+            reference).
 4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
             full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
             norm), bf16, batch 8, paged plane.  Restructure 28 documents
@@ -96,10 +121,12 @@ non-zero without printing a result:
    busy time against the wall clock, and the split between our attention
    kernels, cuBLAS products and everything else, for one decode step of
    each model, one serving run, the same-op ladder of ``serve [prefix]``
-   on each layout, and a gemma3-oracle serving run.
+   on each layout, a gemma3-oracle serving run, and a drain of 4
+   documents in each of the moe-oracle and recurrent cells.
 6. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
    the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
-   (inflight 1) and build runs, each counted from zero;
+   (inflight 1), the families' model checks, moe-oracle and recurrent
+   serving (inflight 1) and build runs, each counted from zero;
    ``relevance_score`` also carries ``stream_ms``), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -173,6 +200,25 @@ PREFIX_BLOCKS = (16, 512)
 GEMMA3_WINDOW = 1024
 GEMMA3_LAYERS = 8
 GEMMA3_LOGIT_TOL = 0.1
+# The other decoder families' model checks hold serve-path logits against
+# the cacheless forward in bf16 as gemma3's do, with the same bound.
+FAMILY_LOGIT_TOL = 0.1
+# xlstm's cacheless forward takes only a multiple of its 256-token mLSTM
+# chunk (the reference's assertion), so its decode is held after 256 steps
+# from 1536 tokens in f32 (the same weights), where decode and the chunked
+# forward agree to ~6e-5 at a logit std of 0.64 on the H100; in bf16 the
+# rounding of 256 one-token passes moves the logits by 0.1-0.2 (printed
+# by the model check, not held).  1e-3 keeps a 17x margin over f32.
+XLSTM_F32_TOL = 1e-3
+# phi3.5-moe's depth on one card: a layer holds ~2.60 GB of bf16 weights
+# (2.52 GB of them experts), so 16 layers are ~41.9 GB with the embedding,
+# beside the other phases' models; all 32 (~83 GB) do not fit 80 GB.
+PHI_LAYERS = 16
+FAMILY_CUT_WHY = {
+    "phi3_5_moe": "a layer is ~2.60 GB of bf16 weights; the published 32 "
+                  "(~83 GB) do not fit the card's 80 GB",
+}
+RECURRENTGEMMA_WINDOW = 2048
 # the seeded chaos drain of tests/test_torch_faults.py
 CHAOS_SEED = 23
 CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
@@ -255,10 +301,10 @@ class Timer:
 
 
 def head_dim_resources(source: str, res, kinds: dict,
-                       no_spill: tuple) -> None:
+                       no_spill: tuple, dims=(64, 128)) -> None:
     """Print a source's registers and spills per kernel (``kinds`` maps a
     symbol fragment to its label) and head_dim; the kernels labelled in
-    ``no_spill`` must not spill at the main path's head_dims (64, 128)."""
+    ``no_spill`` must not spill at the head_dims ``dims``."""
     by: dict = {}
     for r in res:
         kind = next(k for sym, k in kinds.items() if sym in r["kernel"])
@@ -269,7 +315,7 @@ def head_dim_resources(source: str, res, kinds: dict,
         print(f"build: {source} {kind} Dh {dh}: registers "
               f"{sorted(r['registers'] for r in rs)} over {len(rs)} "
               f"instantiations, spill bytes max {spill}")
-        assert kind not in no_spill or dh not in (64, 128) or spill == 0, \
+        assert kind not in no_spill or dh not in dims or spill == 0, \
             (source, dh, kind, rs)
 
 
@@ -499,24 +545,23 @@ def window_mask(kv_len, Sq, Skv, q_offset, window, dev):
     return m & (kpos[None, :] > qpos[:, None] - window)[None, None]
 
 
-def gemma3_kernel_phase(dev, timer):
-    """The dense entry points at gemma3-27b's heads (32 query / 16 KV,
-    head_dim 128, bf16) with its 1024-key window: ``flash_attention`` as a
-    prefill of 2048 queries over 2048 keys (the window bites from query
-    1024 on) and as an extend of 512 queries at ``q_offset`` 1536;
-    ``decode_attention`` over a full ring (every row ``kv_valid`` 1024)
-    and a partly filled one.  Each against its plain version, two calls
-    bitwise equal, each sequence alone (the other rows' K/V zeroed)
-    bitwise equal to its row of the batch; timed beside SDPA with an
-    explicit boolean window mask and the bound.  Returns the rows."""
+def windowed_kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, W: int,
+                          label: str, flash_cases, B_flash: int, seed: int):
+    """The dense entry points at one sliding-window model's heads (bf16)
+    with its window ``W``: ``flash_attention`` at each of ``flash_cases``
+    ((case, Sq, q_offset, kv_len per row) over ``2 W`` keys, batch
+    ``B_flash``), ``decode_attention`` over a full ring (every row
+    ``kv_valid`` W) and a partly filled one (batch 8).  Each against its
+    plain version, two calls bitwise equal, each sequence alone (the other
+    rows' K/V zeroed) bitwise equal to its row of the batch; timed beside
+    SDPA with an explicit boolean window mask and the bound.  Returns the
+    rows."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import ops
 
-    g = torch.Generator(device=dev).manual_seed(4)
+    g = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
-    Hq, Hkv, Dh, W = 32, 16, 128, GEMMA3_WINDOW
-    label = "gemma3-27b shapes, window 1024"
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device=dev).to(bf16)
@@ -529,11 +574,8 @@ def gemma3_kernel_phase(dev, timer):
                 f"{label}: sequence {b} alone differs from the batch"
 
     rows = []
-    B, Skv = 4, 2048
-    for case, Sq, q_off, kl in (
-            ("prefill Sq=Skv=2048", 2048, 0, [2048, 1900, 1500, 1100]),
-            ("extend Sq=512 at q_offset 1536", 512, 1536,
-             [2048, 2000, 1800, 1537])):
+    B, Skv = B_flash, 2 * W
+    for case, Sq, q_off, kl in flash_cases:
         q, k, v = rand(B, Sq, Hq, Dh), rand(B, Skv, Hkv, Dh), \
             rand(B, Skv, Hkv, Dh)
         kv_len = torch.tensor(kl, dtype=torch.int32, device=dev)
@@ -575,7 +617,7 @@ def gemma3_kernel_phase(dev, timer):
               f"{nw_pairs / nw_ms / 1e3:.4g} per us ({nw_pairs:.4g} pairs)")
     B = 8
     k, v, q = rand(B, W, Hkv, Dh), rand(B, W, Hkv, Dh), rand(B, Hq, Dh)
-    for case, kl in (("full ring, kv_valid 1024", [W] * B),
+    for case, kl in ((f"full ring, kv_valid {W}", [W] * B),
                      ("partly filled ring", [W, 1, 300, W - 1, 512, 777, 64,
                                              1000])):
         kv_len = torch.tensor(kl, dtype=torch.int32, device=dev)
@@ -769,14 +811,16 @@ def gemma3_serving_phase(models, params, g_model, g_params):
     return runs["inflight=1"][1], cascades, docs
 
 
-def tenant_cascades():
+def tenant_cascades(first: float = 0.25):
+    """The two tenant cascades of ``launch/serve.py``, the shared screen at
+    document fraction ``first``."""
     from repro_torch.core.tasks import Cascade, Task, TaskConfig
     return [
-        Cascade([Task(TaskConfig("proxy", "sur_court", 0.25),
+        Cascade([Task(TaskConfig("proxy", "sur_court", first),
                       {0: 0.6, 1: 0.6}),
                  Task(TaskConfig("proxy", "o_orig", 1.0),
                       {0: 0.65, 1: 0.65})]),
-        Cascade([Task(TaskConfig("proxy", "sur_court", 0.25),
+        Cascade([Task(TaskConfig("proxy", "sur_court", first),
                       {0: 0.6, 1: 0.6}),
                  Task(TaskConfig("proxy", "sur_court", 1.0),
                       {0: 0.7, 1: 0.7})]),
@@ -800,14 +844,15 @@ def _counts():
 
 
 def make_server(models, params, *, inflight: int, ops=OPS,
-                server_kw=None, **be_kw):
+                server_kw=None, vocab: int = 128256, **be_kw):
     """Proxy and oracle backends over ``models`` and a batch-8 server on
     the card; ``be_kw`` goes to both backends, ``server_kw`` to the
-    server."""
+    server.  ``vocab`` sizes the tokenizer (at most the smaller model's
+    vocabulary)."""
     from repro_torch.data.tokenizer import HashWordTokenizer
     from repro_torch.serving.engine import CascadeServer, LMBackend
 
-    tokz = HashWordTokenizer(vocab_size=128256)
+    tokz = HashWordTokenizer(vocab_size=vocab)
     rates = {"proxy": 0.15e-6, "oracle": 2.50e-6}
     backends = {n: LMBackend(name=n, model=models[n], params=params[n],
                              tokenizer=tokz, rate_per_token=rates[n],
@@ -839,11 +884,15 @@ def check_launches(srv, counts, *, prefills: int = 0):
     """The kernel counters against the server's launches, per backend
     plane (paged entry points on the paged plane, dense ones on the
     gather plane).  A standard stage launch runs one flash extend per
-    layer when it has new tokens and one decode per layer per operation
-    token; a prefix-plane launch one decode per layer (the readout), and
-    each op-prefix prefill one flash extend per layer (``prefills``
-    counts those, on the paged plane).  Launches that failed ran no
-    step."""
+    attention layer when it has new tokens (a sliding-window layer only
+    at cached length 0: its extend past a cached prefix is the plain
+    masked ring path) and one decode per attention layer per operation
+    token; recurrent layers launch no kernel.  A prefix-plane launch runs
+    one decode per layer (the readout), and each op-prefix prefill one
+    flash extend per layer (``prefills`` counts those, on the paged
+    plane).  Launches that failed ran no step."""
+    from repro_torch.config import ATTN_FULL, ATTN_LOCAL
+
     want = {"paged_flash_attention": 0, "paged_decode_attention": 0,
             "flash_attention": 0, "decode_attention": 0}
     planes = set()
@@ -852,10 +901,14 @@ def check_launches(srv, counts, *, prefills: int = 0):
             continue
         be = srv.backends[rec.model]
         pre = "paged_" if be.uses_paged_kv() else ""
-        planes.add(pre)
-        n_layers = be.model.num_layers
+        full = be.model.kinds.count(ATTN_FULL)
+        local = be.model.kinds.count(ATTN_LOCAL)
+        n_layers = full + local
+        if n_layers:
+            planes.add(pre)
         if rec.f_len > rec.cached_len:
-            want[pre + "flash_attention"] += n_layers
+            want[pre + "flash_attention"] += full + (
+                local if rec.cached_len == 0 else 0)
         want[pre + "decode_attention"] += n_layers * (
             1 if be.prefix_sharing else len(
                 be.tokenizer.encode(srv.operations[rec.op_id])))
@@ -1223,6 +1276,369 @@ def chaos_phase(models, params):
     failed = [k for k, v in checks.items() if v is not True]
     assert not failed, f"chaos checks failed: {failed}"
     return counts
+
+
+def describe_model(arch, model, params, seed, full_layers=None):
+    """Print a family model's widths and weight bytes, and a cut depth as
+    a ``reduced:`` line."""
+    cfg = model.rcfg.base
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+           if cfg.moe else "")
+    print(f"models [families]: {cfg.name} full width ({cfg.num_layers} "
+          f"layers {'/'.join(sorted(set(model.kinds)))}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"head_dim {model.rcfg.head_dim}, d_ff {cfg.d_ff}{moe}, vocab "
+          f"{model.rcfg.padded_vocab}), bf16, {n_bytes / 1e9:.2f} GB of "
+          f"random weights (seed {seed})")
+    if full_layers is not None:
+        print(f"reduced: num_layers {full_layers} -> {cfg.num_layers} "
+              f"({cfg.name}: {FAMILY_CUT_WHY.get(arch, '')})")
+
+
+def family_models(archs):
+    """Full-width models (random bf16 weights) of ``archs``: (arch, seed,
+    layers or None for the published depth).  Returns {arch: (model,
+    params)}."""
+    import dataclasses
+
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    out = {}
+    for arch, seed, layers in archs:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        model = LM(resolve(cfg, tp=1), device="cuda")
+        params = model.init(seed=seed)
+        describe_model(arch, model, params, seed,
+                       None if layers is None else full.num_layers)
+        out[arch] = (model, params)
+    return out
+
+
+def _patch_inputs(model, n_img: int, grid: int, text, gen):
+    """qwen2-vl's stubbed vision input: ``n_img`` random patch embeddings
+    on a ``grid`` x ``grid`` (h, w) grid at t = 0, then ``text`` at its
+    absolute position on all three channels."""
+    B, n_txt = text.shape
+    d = model.rcfg.base.d_model
+    patches = (torch.randn((B, n_img, d), generator=gen, device="cuda")
+               * 0.02).to(torch.bfloat16)
+    i = torch.arange(n_img, device="cuda")
+    img = torch.stack([torch.zeros_like(i), i // grid, i % grid], -1)
+    txt = torch.arange(n_img, n_img + n_txt, device="cuda")[:, None].expand(
+        n_txt, 3)
+    pos3 = torch.cat([img, txt])[None].expand(B, n_img + n_txt, 3)
+    return {"tokens": text, "patch_emb": patches, "positions3": pos3}
+
+
+def family_model_phase(arch, model, params):
+    """``models [families]``: serve-path logits against the cacheless
+    forward.  Each case builds caches to position ``n0`` ((a) a prefill
+    of 1536 tokens into caches of 2048 positions, (b) a prefill of 1024
+    and an extend of 512 at ``q_offset`` 1024, and for qwen2-vl (c) 1024
+    patch embeddings on a 32 x 32 grid and 512 text tokens), then decodes;
+    the path's last logits (position ``n0 - 1``) and the decode steps'
+    logits at 1536 and 1537 are held against the cacheless prefill of the
+    sequence up to the same position, within ``FAMILY_LOGIT_TOL``.
+
+    xlstm's cacheless forward takes only a multiple of the 256-token mLSTM
+    chunk (the reference's assertion), so its bf16 decode is held after a
+    prefill of 255 tokens (one step, against the forward of 256), its
+    1536-token caches at position 1535, and its decode after 256 steps
+    from 1536 tokens in f32 (the same weights, ``XLSTM_F32_TOL``); its
+    128 -> 512 extend must raise as the reference's does.
+
+    phi3.5-moe logs every MoE layer's keep mask: the two sides compute the
+    same function only where they made the same drop decisions for every
+    token (capacity depends on the chunk length: 384 an expert for 1536
+    or 1537 tokens, 256 for 1024, 128 for 512, 1 for a decode step, which
+    drops nothing), so the bound is held there and the rest is printed
+    with its count of differing decisions.  Returns the kernel launches."""
+    import dataclasses
+
+    from repro_torch.config import resolve
+    from repro_torch.models import moe
+    from repro_torch.models.model import LM
+
+    name = model.rcfg.base.name
+    vocab = model.rcfg.base.vocab_size
+    is_moe = model.rcfg.base.moe is not None
+    xlstm = arch == "xlstm_350m"
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(16, vocab, (2, 1794), generator=g, device="cuda")
+
+    def pos(n):
+        return torch.full((2,), n, dtype=torch.int32, device="cuda")
+
+    def logged(fn):
+        """(result, every MoE layer's keep mask [B, S, k] of the call)."""
+        if not is_moe:
+            return fn(), []
+        moe.DROP_LOG = []
+        try:
+            return fn(), list(moe.DROP_LOG)
+        finally:
+            moe.DROP_LOG = None
+
+    def pgen():
+        return torch.Generator(device="cuda").manual_seed(7)
+
+    def batch_upto(patches, n):
+        """The inputs of positions [0, n)."""
+        if patches:
+            return _patch_inputs(model, 1024, 32, toks[:, :n - 1024], pgen())
+        return {"tokens": toks[:, :n]}
+
+    decode_at = () if xlstm else (1536, 1537)
+    cases = [("prefill 1536", False, ((0, 1536),), decode_at, model, params,
+              FAMILY_LOGIT_TOL),
+             ("prefill 1024 + extend 512", False, ((0, 1024), (1024, 1536)),
+              decode_at, model, params, FAMILY_LOGIT_TOL)]
+    if model.rcfg.base.frontend_stub == "vision_patches":
+        cases.append(("1024 patches + 512 text", True, ((0, 1536),),
+                      decode_at, model, params, FAMILY_LOGIT_TOL))
+    if xlstm:
+        cases.append(("prefill 255", False, ((0, 255),), (255,), model,
+                      params, FAMILY_LOGIT_TOL))
+        cases.append(("bf16, prefill 1536 + 256 decode steps", False,
+                      ((0, 1536),), (1791,), model, params, None))
+        m32 = LM(resolve(dataclasses.replace(model.rcfg.base,
+                                             dtype="float32"), tp=1),
+                 device="cuda")
+        p32 = _map_tensors(params, lambda t: t.float())
+        cases.append(("f32, prefill 1536 + 256 decode steps", False,
+                      ((0, 1536),), (1791,), m32, p32, XLSTM_F32_TOL))
+    _zero_counts()
+    errs, held, n_checks, ref_cache = [], 0, 0, {}
+    with torch.no_grad():
+        for case, patches, pieces, at, m, p, tol in cases:
+            def reference(n):
+                """The cacheless prefill's logits at position n - 1, and
+                its keep masks."""
+                key = (patches, n, m.dtype)
+                if key not in ref_cache:
+                    ref_cache[key] = logged(
+                        lambda: m.prefill(p, batch_upto(patches, n))[0])
+                return ref_cache[key]
+
+            side = []                      # the cached side's keep masks
+            for a, b in pieces:
+                if a == 0:
+                    (last, st), masks = logged(lambda: m.prefill(
+                        p, batch_upto(patches, b), s_alloc=2048))
+                else:
+                    (last, st), masks = logged(lambda: m.extend(
+                        p, {"tokens": toks[:, a:b]}, st, a))
+                side.append(masks)
+            n = pieces[-1][1]
+            checks = [(n, last)]
+            while at and n <= max(at):
+                tok = toks[:, n - 1024] if patches else toks[:, n]
+                (dl, st), masks = logged(lambda: m.decode_step(
+                    p, tok, st, pos(n)))
+                side.append(masks)
+                n += 1
+                if n - 1 in at:
+                    checks.append((n, dl))
+            for n, lg in checks:
+                ref, ref_masks = reference(n)
+                assert torch.isfinite(lg).all() and lg.shape == ref.shape
+                err = max_err(lg, ref)
+                std = float(ref.float().std())
+                note, same = "", True
+                if is_moe:
+                    # per layer, the cached passes' masks over tokens [0, n)
+                    mine = [torch.cat([q[i] for q in side], 1)[:, :n]
+                            for i in range(len(ref_masks))]
+                    differ = sum(int((x != y).sum())
+                                 for x, y in zip(mine, ref_masks))
+                    same = differ == 0
+                    note = (f"; dropped assignments: cached passes "
+                            f"{sum(int((~x).sum()) for x in mine)}, full "
+                            f"forward {sum(int((~y).sum()) for y in ref_masks)}"
+                            f", drop decisions differing {differ}")
+                if tol is None and n > pieces[-1][1]:
+                    print(f"models [families, {name}, {case}, logits at "
+                          f"position {n - 1}]: max |logit - full forward| "
+                          f"{err:.4g} (logit std {std:.4g}; printed, not "
+                          f"held: bf16 rounding through {n - pieces[-1][1]} "
+                          f"one-token passes; the f32 case holds the same "
+                          f"decode)")
+                    continue
+                bound = FAMILY_LOGIT_TOL if tol is None else tol
+                n_checks += 1
+                print(f"models [families, {name}, {case}, logits at "
+                      f"position {n - 1}]: max |logit - full forward| "
+                      f"{err:.4g} (logit std {std:.4g}; tol {bound:g}{note}), "
+                      f"argmax equal "
+                      f"{bool((lg.argmax(-1) == ref.argmax(-1)).all())}"
+                      + ("" if same else "; not held: the two sides "
+                         "dropped different assignments"))
+                if same:
+                    assert err <= bound, (name, case, n, err)
+                    errs.append(err)
+                    held += 1
+        if xlstm:
+            # the reference's chunking refuses an extend of 384 tokens
+            # (128 -> 512, a bucket-512 document at fractions 0.25 -> 1.0)
+            _, st = model.prefill(params, {"tokens": toks[:, :128]},
+                                  s_alloc=512)
+            try:
+                model.extend(params, {"tokens": toks[:, 128:512]}, st, 128)
+                raise RuntimeError("an mLSTM extend of 384 tokens ran")
+            except AssertionError as e:
+                print(f"models [families, {name}]: extend 128 -> 512 raises "
+                      f"AssertionError {e} (the reference's mlstm_chunk "
+                      f"assertion T % min(256, T) == 0), as the reference "
+                      f"does")
+    assert held > 0, name
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"models [families, {name}]: {held} of {n_checks} positions held "
+          f"within tol (max error {max(errs):.4g}); kernel launches "
+          f"{json.dumps(counts)}")
+    return counts
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return [_map_tensors(v, fn) for v in tree]
+
+
+def family_serving_phase(label, models, params, cascades, docs, vocab, *,
+                         recurrent: bool):
+    """``serve [<label>]``: two queries over ``docs`` with the proxy and
+    oracle of ``models``: a warm-up drain, then inflight 1 and 3 (and, for
+    recurrent models, inflight 1 again), launch counters zeroed before each
+    drain and read after.  Every document must resolve and the kernel
+    launches match the server's.  Paged models: inflight=3 == inflight=1
+    bitwise.  Recurrent models (gather plane): the two inflight=1 runs
+    bitwise equal; the documents whose result differs between inflight 1
+    and 3 are counted (a recycled arena row hands its recurrent state to
+    the next document, in the reference too, and which row a document
+    gets depends on the schedule).  Returns the inflight=1 counts."""
+    runs = {}
+    for run, inflight in (("warm-up", 1), ("inflight=1", 1),
+                          ("inflight=3", 3)) + (
+            (("inflight=1 again", 1),) if recurrent else ()):
+        srv = make_server(models, params, inflight=inflight, vocab=vocab)
+        for be in srv.backends.values():
+            assert be.uses_paged_kv() == (not recurrent)
+        results, counts, wall = drive(srv, cascades, docs)
+        assert_resolved(results, docs)
+        check_launches(srv, counts)
+        n = sum(len(r.status) for r in results.values())
+        p50, p99 = latency_ms(results)
+        exits = [list(r.exit_stage.values()) for r in results.values()]
+        print(f"serve [{label}, {run}]: {n} docs terminal and RESOLVED in "
+              f"{wall:.3f} s ({n / wall:.2f} docs/s), {srv.stats().batches} "
+              f"launches, latency p50 {p50:.1f} ms p99 {p99:.1f} ms, exit "
+              f"stages {[[e.count(s) for s in range(3)] for e in exits]}, "
+              f"kernel launches {json.dumps(counts)}")
+        runs[run] = ({q: (r.pred, r.conf, r.doc_cost)
+                      for q, r in results.items()}, counts)
+    one, three = runs["inflight=1"][0], runs["inflight=3"][0]
+    if not recurrent:
+        assert three == one, f"{label}: inflight 3 != 1"
+        print(f"serve [{label}]: inflight=3 == inflight=1 bitwise (preds, "
+              f"confs, per-document $) over {len(docs)} docs x "
+              f"{len(cascades)} queries")
+    else:
+        assert runs["inflight=1 again"][0] == one, \
+            f"{label}: two inflight=1 runs differ"
+        differ = sum(one[q][0][d] != three[q][0][d]
+                     or one[q][1][d] != three[q][1][d]
+                     or one[q][2][d] != three[q][2][d]
+                     for q in one for d in one[q][0])
+        preds = sum(one[q][0][d] != three[q][0][d]
+                    for q in one for d in one[q][0])
+        print(f"serve [{label}]: two inflight=1 runs bitwise equal; "
+              f"inflight=3 differs from inflight=1 on {differ} of "
+              f"{sum(len(v[0]) for v in one.values())} (query, document) "
+              f"results ({preds} preds differ): a recycled gather-plane "
+              f"row starts the next "
+              f"document from the previous one's recurrent state, as in the "
+              f"reference, and which row a document gets depends on the "
+              f"schedule")
+    if "--profile" in sys.argv[1:]:
+        profile_serving(label, models, params, cascades, docs, vocab)
+    return runs["inflight=1"][1]
+
+
+def profile_serving(label, models, params, cascades, docs, vocab) -> None:
+    """``--profile``: device kernels of one drain of 4 documents at
+    inflight 1 with ``models`` (CUDA activity only: the recurrent cell
+    launches hundreds of thousands of kernels); the wall clock comes from
+    a run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sub = {d: docs[d] for d in sorted(docs)[:4]}
+
+    def run():
+        drive(make_server(models, params, inflight=1, vocab=vocab),
+              cascades, sub)
+
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    _report(f"{label} serving run, 2 queries x 4 docs, inflight=1",
+            _device_kernels(prof), wall)
+
+
+def moe_families_phase(docs):
+    """qwen2-vl-2b (proxy) and phi3.5-moe cut to ``PHI_LAYERS`` layers
+    (oracle): the model checks, then ``serve [moe oracle]``."""
+    ms = family_models((("qwen2_vl_2b", 1, None),
+                        ("phi3_5_moe", 2, PHI_LAYERS)))
+    counts = [family_model_phase(a, *ms[a]) for a in ms]
+    models = {"proxy": ms["qwen2_vl_2b"][0], "oracle": ms["phi3_5_moe"][0]}
+    params = {"proxy": ms["qwen2_vl_2b"][1], "oracle": ms["phi3_5_moe"][1]}
+    vocab = min(m.rcfg.base.vocab_size for m in models.values())
+    serve_counts = family_serving_phase("moe oracle", models, params,
+                                        tenant_cascades(), docs, vocab,
+                                        recurrent=False)
+    return counts, serve_counts
+
+
+def recurrent_families_phase(docs):
+    """xlstm-350m (proxy) and recurrentgemma-2b (oracle), full depth, as
+    ``launch/serve.py``'s ``build_engine(full_width=True)`` builds them
+    (seeds 1 and 2, a tokenizer of the smaller vocabulary): the model
+    checks, then ``serve [recurrent]`` with the tenants' first stage at
+    fraction 0.5."""
+    from repro_torch.launch.serve import build_engine
+
+    eng = build_engine(8, None, 64, proxy_arch="xlstm_350m",
+                       oracle_arch="recurrentgemma_2b", device="cuda",
+                       full_width=True)
+    models = {n: be.model for n, be in eng.backends.items()}
+    params = {n: be.params for n, be in eng.backends.items()}
+    vocab = eng.backends["proxy"].tokenizer.vocab_size
+    assert vocab == min(m.rcfg.base.vocab_size for m in models.values())
+    counts = []
+    for arch, name, seed in (("xlstm_350m", "proxy", 1),
+                             ("recurrentgemma_2b", "oracle", 2)):
+        assert models[name].rcfg.base.name == arch.replace("_", "-")
+        describe_model(arch, models[name], params[name], seed)
+        counts.append(family_model_phase(arch, models[name], params[name]))
+    print(f"models [families]: built by build_engine(full_width=True), "
+          f"tokenizer vocabulary {vocab}")
+    print("serve [recurrent]: tenants' first stage at fraction 0.5: at 0.25 "
+          "a bucket-512 document extends the xlstm proxy by 384 tokens "
+          "(128 -> 512), which the reference's mLSTM chunking refuses")
+    serve_counts = family_serving_phase("recurrent", models, params,
+                                        tenant_cascades(0.5), docs, vocab,
+                                        recurrent=True)
+    return counts, serve_counts
 
 
 def build_phase():
@@ -1626,12 +2042,14 @@ def main() -> int:
         "decode_attention",
         _build.resources(_build.log_path("decode_attention")),
         {"decode_partial_kernel": "partial",
-         "decode_combine_kernel": "combine"}, ("partial", "combine"))
+         "decode_combine_kernel": "combine"}, ("partial", "combine"),
+        dims=(64, 128, 256))
     head_dim_resources(
         "flash_attention",
         _build.resources(_build.log_path("flash_attention")),
         {"flash_attention_tc_kernel": "tensor-core",
-         "flash_attention_kernel": "fma"}, ("tensor-core",))
+         "flash_attention_kernel": "fma"}, ("tensor-core",),
+        dims=(64, 128, 256))
     for r in _build.resources(_build.log_path("relevance_score")):
         vpl = int(re.search(r"Li(\d+)E", r["kernel"]).group(1))
         spill = r["spill_stores"] + r["spill_loads"]
@@ -1643,29 +2061,66 @@ def main() -> int:
     print(f"timer floor: an empty launch (torch.cuda._sleep(0)) times "
           f"{timer.ms(empty):.4f} ms per call, {timer.stream_ms([empty]):.4f} "
           f"ms back to back")
-    rows = kernel_phase(dev, timer, 32, 8, 64, "llama3.2-1b shapes")
-    kernel_phase(dev, timer, 16, 8, 128, "qwen3-1.7b shapes")
-    prefix_kernel_phase(dev, 32, 8, 64, "llama3.2-1b shapes")
-    prefix_kernel_phase(dev, 16, 8, 128, "qwen3-1.7b shapes")
-    gemma3_kernel_phase(dev, timer)
-    launches, models, params, docs = serving_phase()
-    prefix_launches = prefix_serving_phase(models, params, docs)
-    chaos_launches = chaos_phase(models, params)
-    g_model, g_params, _ = gemma3_model_phase()
-    gemma3_launches, g_cascades, g_docs = gemma3_serving_phase(
-        models, params, g_model, g_params)
-    build_launches, restr, build_docs, engine, reordered = build_phase()
-    rows.append(relevance_phase(dev, timer, restr, build_docs))
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"phase {name}: wall {time.perf_counter() - t:.1f} s")
+        return out
+
+    rows = phase("kernels [llama3.2-1b]", kernel_phase, dev, timer, 32, 8, 64,
+                 "llama3.2-1b shapes")
+    phase("kernels [qwen3-1.7b]", kernel_phase, dev, timer, 16, 8, 128,
+          "qwen3-1.7b shapes")
+    phase("kernels [prefix tables]", lambda: (
+        prefix_kernel_phase(dev, 32, 8, 64, "llama3.2-1b shapes"),
+        prefix_kernel_phase(dev, 16, 8, 128, "qwen3-1.7b shapes")))
+    phase("kernels [gemma3-27b]", windowed_kernel_phase,
+          dev, timer, 32, 16, 128, GEMMA3_WINDOW,
+          "gemma3-27b shapes, window 1024",
+          (("prefill Sq=Skv=2048", 2048, 0, [2048, 1900, 1500, 1100]),
+           ("extend Sq=512 at q_offset 1536", 512, 1536,
+            [2048, 2000, 1800, 1537])), 4, 4)
+    W = RECURRENTGEMMA_WINDOW
+    phase("kernels [recurrentgemma-2b]", windowed_kernel_phase,
+          dev, timer, 10, 1, 256, W,
+          f"recurrentgemma-2b shapes, head_dim 256, window {W}",
+          (("prefill Sq=Skv=4096", 2 * W, 0, [2 * W, 3000]),
+           ("extend Sq=512 at q_offset 3584", 512, 2 * W - 512,
+            [2 * W, 3700])), 2, 5)
+    phase("kernels [qwen2-vl-2b]", kernel_phase, dev, timer, 12, 2, 128,
+          "qwen2-vl-2b shapes")
+    phase("kernels [phi3.5-moe]", kernel_phase, dev, timer, 32, 8, 128,
+          "phi3.5-moe shapes")
+    launches, models, params, docs = phase("serve", serving_phase)
+    prefix_launches = phase("serve [prefix]", prefix_serving_phase, models,
+                            params, docs)
+    chaos_launches = phase("serve [chaos]", chaos_phase, models, params)
+    g_model, g_params, _ = phase("gemma3", gemma3_model_phase)
+    gemma3_launches, g_cascades, g_docs = phase(
+        "serve [gemma3 oracle]", gemma3_serving_phase, models, params,
+        g_model, g_params)
+    moe_model_launches, moe_launches = phase(
+        "models [families] + serve [moe oracle]", moe_families_phase, docs)
+    rec_model_launches, rec_launches = phase(
+        "models [families] + serve [recurrent]", recurrent_families_phase,
+        docs)
+    build_launches, restr, build_docs, engine, reordered = phase(
+        "build", build_phase)
+    rows.append(phase("relevance", relevance_phase, dev, timer, restr,
+                      build_docs))
     restructure_breakdown(dev, build_docs, reordered)
     if "--profile" in sys.argv[1:]:
         profile_phase(models, params, docs, engine.backends["oracle"],
                       (g_model, g_params, g_cascades, g_docs))
     for r in rows:
         # each path's run, counted from zero: serving, prefix, chaos,
-        # gemma3 oracle, build
+        # gemma3 oracle, the families' model checks and their two serving
+        # paths, build
         r["launches"] = sum(c[r["name"]] for c in (
             launches, prefix_launches, chaos_launches, gemma3_launches,
-            build_launches))
+            *moe_model_launches, moe_launches, *rec_model_launches,
+            rec_launches, build_launches))
         assert r["launches"] > 0, r["name"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -15,6 +15,10 @@ ARCHS: List[str] = [
     "gemma3_27b",
     "llama3_2_1b",
     "qwen3_1_7b",
+    "qwen2_vl_2b",
+    "phi3_5_moe",
+    "xlstm_350m",
+    "recurrentgemma_2b",
 ]
 
 # public ids (dashes) -> module names
@@ -22,6 +26,10 @@ ALIASES: Dict[str, str] = {
     "gemma3-27b": "gemma3_27b",
     "llama3.2-1b": "llama3_2_1b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "xlstm-350m": "xlstm_350m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

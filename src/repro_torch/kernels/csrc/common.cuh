@@ -49,6 +49,7 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
       REPRO_DISPATCH_DH(32, q32, kv32, LAUNCH)                               \
       REPRO_DISPATCH_DH(64, q32, kv32, LAUNCH)                               \
       REPRO_DISPATCH_DH(128, q32, kv32, LAUNCH)                              \
+      REPRO_DISPATCH_DH(256, q32, kv32, LAUNCH)                              \
       default:                                                               \
         return cudaErrorInvalidValue;                                        \
     }                                                                        \

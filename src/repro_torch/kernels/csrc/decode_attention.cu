@@ -58,6 +58,11 @@
 //   edit the constant and read chip_smoke.py's decode rows.
 //   The wrapper's KV_CHUNK must equal kKvChunk and is checked against
 //   repro_decode_kv_chunk() when the library loads.
+// - head_dim 256 (recurrentgemma's local layers, 10 query heads over one
+//   KV head): a bf16 key's row is 512 bytes, 32 lanes of 16 bytes, so a
+//   warp reads one key per load and a lane group is the whole warp.  The
+//   per-thread state (GH * 8 f32 each of q and acc) is what it is at 128;
+//   only the xor tree is one level deeper.  g = 10 gives GH = 2.
 #include "common.cuh"
 
 namespace {
@@ -368,6 +373,10 @@ cudaError_t launch_heads(const TQ* q, const TKV* k, const TKV* v, TQ* o,
 
 // A block takes GH = 4, 2 or 1 query heads of its KV head: the largest
 // that divides g, so g = 2 (qwen3) and g = 4 (llama) read each K/V byte once.
+//
+// A key's row is read by LPK = DH * sizeof(TKV) / 16 lanes of one warp, so
+// an f32 cache at head_dim 256 (64 lanes a key) has no instantiation: the
+// wrapper raises for that pair before it gets here.
 template <typename TQ, typename TKV, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* part, const void* rows, long long rows_stride,
@@ -375,7 +384,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int Hkv, int S, long long k_sr, long long k_ss,
                    long long k_sh, long long v_sr, long long v_ss,
                    long long v_sh, float scale, cudaStream_t stream) {
-  const int g = Hq / Hkv;
+  if constexpr (DH * sizeof(TKV) / 16 > 32) {
+    return cudaErrorNotSupported;
+  } else {
+    const int g = Hq / Hkv;
 #define HEADS(GH)                                                             \
   launch_heads<TQ, TKV, DH, GH>(                                             \
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),                 \
@@ -383,10 +395,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<float*>(part), static_cast<const int*>(rows), rows_stride, \
       table_block, static_cast<const int*>(kv_len), B, Hq, Hkv, S, k_sr,     \
       k_ss, k_sh, v_sr, v_ss, v_sh, scale, stream)
-  if (g % 4 == 0) return HEADS(4);
-  if (g % 2 == 0) return HEADS(2);
-  return HEADS(1);
+    if (g % 4 == 0) return HEADS(4);
+    if (g % 2 == 0) return HEADS(2);
+    return HEADS(1);
 #undef HEADS
+  }
 }
 
 }  // namespace

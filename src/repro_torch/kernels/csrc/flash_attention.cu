@@ -30,11 +30,17 @@
 //   4 heads, so packing the g heads of a KV head into a block would change
 //   nothing that more rows of one head do not.
 // - Warps of 16 query rows: 4 a block (64 rows) at Dh <= 64, 8 (128 rows)
-//   at Dh 128, the faster of the two at each head_dim on the H100 (PERF.md).
-//   The Q tile is copied once with 16-byte cp.async and held in registers
-//   as mma A fragments (ldmatrix) for the whole key loop.
-// - K/V go through a 3-stage cp.async ring of 64-key tiles, 16 bytes a
-//   thread, two tiles in flight while one computes; one barrier a tile.
+//   at Dh 128, the faster of the two at each head_dim on the H100
+//   (PERF.md); 8 at Dh 256 too, untuned.  The Q tile is copied once with
+//   16-byte cp.async and, up to Dh 128, held in registers as mma A
+//   fragments (ldmatrix) for the whole key loop; at Dh 256
+//   (recurrentgemma) they are reloaded from shared memory at each k-step,
+//   so that they do not spill beside the 128 registers of the O
+//   accumulator.
+// - K/V go through a 3-stage cp.async ring of 64-key tiles (32-key at
+//   Dh 256, whose 64-key score tile would spill beside the 128 registers of
+//   the O accumulator), 16 bytes a thread, two tiles in flight while one
+//   computes; one barrier a tile.
 //   With slots (or a table block holding every key) the arena row is read
 //   once a block; with block tables once per key row a thread copies, so a
 //   tile may cross a table-block boundary anywhere.  Keys at or past
@@ -241,21 +247,31 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 // Tensor-core body: bf16 q and cache
 // ---------------------------------------------------------------------------
 
-constexpr int kStages = 3;          // K/V tiles in the cp.async ring
-
 template <int DH>
 struct TcTile {
-  // warps of 16 query rows a block: 8 at Dh 128 (one block an SM either
+  // warps of 16 query rows a block: 8 at Dh >= 128 (one block an SM either
   // way, by registers), 4 below (three blocks an SM at Dh 64)
   static constexpr int kWarps = DH >= 128 ? 8 : 4;
+  // keys a K/V tile: 64, or 32 at Dh 256, where a 64-key tile's 32 score
+  // registers beside the 128 of the O accumulator spill; three 64-key
+  // stages and the 128-row Q tile would also need 270,336 bytes of the
+  // 232,448 a block may have (32-key tiles need 168,960)
+  static constexpr int kBK = DH >= 256 ? 32 : BK;
+  static constexpr int kStages = 3;       // K/V tiles in the cp.async ring
+  // Q held in registers as mma A fragments for the whole key loop up to
+  // Dh 128; at 256 those 64 registers beside the 128 of the O accumulator
+  // would spill, so the fragments are reloaded from the Q tile in shared
+  // memory at each k-step (one ldmatrix each)
+  static constexpr bool kQInRegs = DH <= 128;
   static constexpr int kThreads = kWarps * 32;
   static constexpr int kBQ = kWarps * 16;           // query rows a block
   static constexpr int kChunks = DH / 8;            // 16-byte chunks a row
   static constexpr int kRowBytes = DH * 2 + 16;     // padded shared row
-  static constexpr int kTileBytes = BK * kRowBytes;
+  static constexpr int kTileBytes = kBK * kRowBytes;
   // the Q tile, then kStages stages of (K tile, V tile)
   static constexpr int kSmemBytes =
       kBQ * kRowBytes + 2 * kStages * kTileBytes;
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -336,6 +352,8 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
     int causal, int window, int q_offset, float scale_log2) {
   using repro::kNegInf;
   using T = TcTile<DH>;
+  constexpr int kStages = T::kStages;
+  constexpr int BK = T::kBK;           // keys a tile (shadows the FMA body's)
   constexpr int KS = DH / 16;          // k-steps of Q K^T
   constexpr int NT = BK / 8;           // key n-tiles of S
   constexpr int DT = DH / 8;           // d n-tiles of O
@@ -414,7 +432,7 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
     cp_async_commit();
   }
 
-  unsigned qf[KS][4];                  // Q as A fragments, per k-step
+  unsigned qf[T::kQInRegs ? KS : 1][4];  // Q as A fragments, per k-step
   float m[2] = {kNegInf, kNegInf};     // running max (log2 domain), rows gr, gr+8
   float l[2] = {0.f, 0.f};             // this lane's share of the row sums
   float acc[DT][4];
@@ -432,7 +450,7 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
     if (t + kStages - 1 < t_end)
       load_kv(t + kStages - 1, (st + kStages - 1) % kStages);
     cp_async_commit();
-    if (t == t_begin) {
+    if (T::kQInRegs && t == t_begin) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
         ldmatrix_x4(smem_addr(qs + (warp * 16 + (lane & 15)) * T::kRowBytes +
@@ -457,6 +475,11 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
 #pragma unroll
     for (int ks_ = 0; ks_ < KS; ++ks_) {
+      const int qi = T::kQInRegs ? ks_ : 0;
+      if (!T::kQInRegs)
+        ldmatrix_x4(smem_addr(qs + (warp * 16 + (lane & 15)) * T::kRowBytes +
+                              (ks_ * 16 + (lane >> 4) * 8) * 2),
+                    qf[0]);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         // keys 16np .. 16np+15, d 16ks .. 16ks+15: B fragments of 2 n-tiles
@@ -465,8 +488,8 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
                                        T::kRowBytes +
                               (ks_ * 16 + ((lane >> 3) & 1) * 8) * 2),
                     bk);
-        mma_bf16(s[2 * np], qf[ks_], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[ks_], bk[2], bk[3]);
+        mma_bf16(s[2 * np], qf[qi], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[qi], bk[2], bk[3]);
       }
     }
 
@@ -499,19 +522,6 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
       m[r] = mx[r];
       l[r] *= alpha[r];
     }
-    // P in bf16 as the A fragments of P V: k-step kk is n-tiles 2kk, 2kk+1
-    unsigned pf[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = exp2f(s[nt][0] - msub[0]);
-      const float p1 = exp2f(s[nt][1] - msub[0]);
-      const float p2 = exp2f(s[nt][2] - msub[1]);
-      const float p3 = exp2f(s[nt][3] - msub[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       acc[dt][0] *= alpha[0];
@@ -519,8 +529,23 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
+    // P in bf16 as the A fragments of P V, built one k-step (n-tiles 2kk
+    // and 2kk + 1) at a time, just before that k-step's products
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
+      unsigned pf[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = 2 * kk + j;
+        const float p0 = exp2f(s[nt][0] - msub[0]);
+        const float p1 = exp2f(s[nt][1] - msub[0]);
+        const float p2 = exp2f(s[nt][2] - msub[1]);
+        const float p3 = exp2f(s[nt][3] - msub[1]);
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pf[2 * j] = pack_bf16(p0, p1);
+        pf[2 * j + 1] = pack_bf16(p2, p3);
+      }
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         // keys 16kk .. 16kk+15, d 16dp .. 16dp+15, transposed: B fragments
@@ -531,8 +556,8 @@ __global__ void __launch_bounds__(TcTile<DH>::kThreads)
                                T::kRowBytes +
                       (dp * 16 + (lane >> 4) * 8) * 2),
             bv);
-        mma_bf16(acc[2 * dp], pf[kk], bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pf[kk], bv[2], bv[3]);
+        mma_bf16(acc[2 * dp], pf, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pf, bv[2], bv[3]);
       }
     }
   }

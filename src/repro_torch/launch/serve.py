@@ -19,7 +19,10 @@ weights from seeds 1 and 2: reduced (2 layers, vocab 512, f32) by
 default, or at full width in bf16 with ``--full-width``.
 ``build_engine(oracle_arch="gemma3_27b")`` puts the paper's oracle class,
 sliding-window gemma3, behind the proxy instead (on the gather plane:
-its ring caches are not paged).  ``--device``
+its ring caches are not paged); ``proxy_arch``/``oracle_arch`` take any
+ported architecture: ``qwen2_vl_2b`` and ``phi3_5_moe`` serve on the paged
+plane, ``xlstm_350m`` and ``recurrentgemma_2b`` (recurrent state) on the
+gather plane.  ``--device``
 defaults to the CUDA device (the hand-written kernels); ``cpu`` runs the
 plain PyTorch versions.
 
@@ -45,8 +48,9 @@ from ..models.runtime import DeviceLike
 from ..serving.engine import (CascadeEngine, CascadeServer, EngineResult,
                               LMBackend, QueryHandle)
 
-# the full-width tokenizer's vocabulary fits llama3.2-1b (128256),
-# qwen3-1.7b (151936) and gemma3-27b (262144)
+# the full-width tokenizer's vocabulary: llama3.2-1b's (128256), or the
+# smaller vocabulary of a backend that has one (phi3.5-moe 32064, xlstm
+# 50304), so every token id is in range for both models
 FULL_VOCAB = 128256
 REDUCED_VOCAB = 512
 
@@ -167,7 +171,10 @@ def build_engine(batch_size: int, slot_budget: Optional[int],
     single-query compatibility API (``run``) or ``register`` several
     queries on it.
     """
-    vocab = FULL_VOCAB if full_width else REDUCED_VOCAB
+    vocab = REDUCED_VOCAB
+    if full_width:
+        vocab = min(FULL_VOCAB, get_config(proxy_arch).vocab_size,
+                    get_config(oracle_arch).vocab_size)
     tokz = HashWordTokenizer(vocab_size=vocab)
 
     def mk(name, arch, seed, rate):

@@ -47,8 +47,14 @@ baked into the keys.  As in the JAX package:
 The ring holds whatever the chunk carried, bucket PAD included: a
 document padded past the window keeps pad keys in its ring and the decode
 reads every slot, as the JAX package does (the port keeps its semantics).
-Paged serving (``slots``) takes full attention only.  Cross-attention and
-M-RoPE are not ported yet and raise ``NotImplementedError``.
+Paged serving (``slots``) takes full attention only.
+
+M-RoPE (qwen2-vl): with ``mrope_sections`` the rotation reads
+``positions3`` [B, S, 3] (t, h, w) instead of ``positions``; text-only
+input takes t = h = w = position.  Keys go into the cache post-rotation,
+so decode and extend need no M-RoPE knowledge beyond their own
+positions.  Cross-attention (``kv_ctx``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,7 +65,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
-from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm_apply
+from .layers import (apply_mrope, apply_rope, init_dense, init_rmsnorm,
+                     rmsnorm_apply)
 
 
 def init_attention(gen: torch.Generator, d: int, h: int, kv: int, dh: int,
@@ -158,24 +165,31 @@ def attention_apply(
     theta: float = 10_000.0,
     norm_eps: float = 1e-6,
     mrope_sections=None,
+    positions3: Optional[torch.Tensor] = None,  # [B, S, 3] for M-RoPE
     kv_ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if kv_ctx is not None or mrope_sections is not None:
-        raise NotImplementedError(
-            "cross-attention and M-RoPE are not ported yet")
+    if kv_ctx is not None:
+        raise NotImplementedError("cross-attention is not ported yet")
     local = window is not None and window > 0
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if mrope_sections is not None and positions3 is None:
+        # text-only input on an M-RoPE model: t = h = w = position
+        positions3 = positions[..., None].expand(B, S, 3)
 
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, norm_eps)
         k = rmsnorm_apply(p["k_norm"], k, norm_eps)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    if mrope_sections is not None:
+        q = apply_mrope(q, positions3, theta, mrope_sections)
+        k = apply_mrope(k, positions3, theta, mrope_sections)
+    else:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
 
     new_cache = None
     if mode == "full":

@@ -1,11 +1,20 @@
-"""Block layer: causal self-attention (full or sliding-window) + dense
-SwiGLU FFN, pre-norms.
+"""Block layer: a sequence mixer and an optional FFN, with pre-norms.
 
-Two block kinds are ported: ``ATTN_FULL`` (llama, qwen3 with its per-head
-q/k norm) and ``ATTN_LOCAL`` (gemma3's sliding-window layers, whose state
-is a ring cache of ``min(sliding_window, s_alloc)`` slots).  Encoder,
-recurrent and MoE blocks, M-RoPE and modality frontends raise
-``NotImplementedError``.
+Kinds (``config`` constants): ``ATTN_FULL`` (llama, qwen3 with its
+per-head q/k norm, qwen2-vl with M-RoPE, phi3.5-moe), ``ATTN_LOCAL``
+(gemma3's and recurrentgemma's sliding-window layers, whose state is a
+ring cache of ``min(sliding_window, s_alloc)`` slots), ``MLSTM`` and
+``SLSTM`` (xlstm) and ``RGLRU`` (recurrentgemma).  The FFN is a dense
+gated MLP, a top-k MoE (``models.moe``), or absent when ``d_ff == 0``
+(xlstm).  Every block has one surface:
+
+    init_block / state_shape / init_block_state / block_apply
+
+``state_shape`` gives every state leaf with its dtype: attention caches
+``{"k", "v"}`` at the storage dtype (``kv_dtype``), recurrent states in
+f32 whatever the model dtype, as in the JAX package.  Bidirectional
+encoder blocks, encoders and the audio frontend raise
+``NotImplementedError`` (``check_supported``).
 """
 from __future__ import annotations
 
@@ -13,11 +22,17 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..config import ATTN_FULL, ATTN_LOCAL, ResolvedConfig
-from .attention import attention_apply, init_attention, init_kv_cache
+from ..config import (ATTN_FULL, ATTN_LOCAL, MLSTM, RGLRU, SLSTM,
+                      ResolvedConfig)
+from . import ssm
+from .attention import attention_apply, init_attention
 from .layers import init_mlp, init_rmsnorm, mlp_apply, rmsnorm_apply
+from .moe import init_moe, moe_apply
 
-PORTED_KINDS = (ATTN_FULL, ATTN_LOCAL)
+PORTED_KINDS = (ATTN_FULL, ATTN_LOCAL, MLSTM, SLSTM, RGLRU)
+ATTN_KINDS = (ATTN_FULL, ATTN_LOCAL)
+
+LeafShapes = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 
 
 def check_supported(rcfg: ResolvedConfig) -> None:
@@ -26,41 +41,80 @@ def check_supported(rcfg: ResolvedConfig) -> None:
     if any(k not in PORTED_KINDS for k in b.layer_kinds()):
         raise NotImplementedError(
             f"{b.name}: only {PORTED_KINDS} blocks are ported")
-    if b.moe is not None or b.d_ff <= 0:
-        raise NotImplementedError(f"{b.name}: only dense FFNs are ported")
-    if (b.mrope_sections is not None or b.frontend_stub is not None
-            or b.encoder_layers):
+    if b.encoder_layers or b.frontend_stub == "audio_frames":
         raise NotImplementedError(
-            f"{b.name}: M-RoPE, modality frontends and encoders are not "
-            "ported")
+            f"{b.name}: encoders and the audio frontend are not ported")
 
 
-def init_block(gen: torch.Generator, rcfg: ResolvedConfig,
+def _has_ffn(rcfg: ResolvedConfig) -> bool:
+    return rcfg.base.moe is not None or rcfg.base.d_ff > 0
+
+
+def _lru_width(rcfg: ResolvedConfig) -> int:
+    return rcfg.base.d_model       # Griffin's lru_width == d_model at 2b
+
+
+def init_block(gen: torch.Generator, rcfg: ResolvedConfig, kind: str,
                dtype) -> Dict[str, Any]:
-    d = rcfg.base.d_model
-    return {
-        "norm1": init_rmsnorm(d, gen.device),
-        "attn": init_attention(gen, d, rcfg.padded_heads,
-                               rcfg.padded_kv_heads, rcfg.head_dim, dtype,
-                               qk_norm=rcfg.base.qk_norm),
-        "norm2": init_rmsnorm(d, gen.device),
-        "mlp": init_mlp(gen, d, rcfg.base.d_ff, dtype),
-    }
+    b = rcfg.base
+    d = b.d_model
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(d, gen.device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = init_attention(gen, d, rcfg.padded_heads,
+                                   rcfg.padded_kv_heads, rcfg.head_dim,
+                                   dtype, qk_norm=b.qk_norm)
+    elif kind == MLSTM:
+        p["mlstm"] = ssm.init_mlstm(gen, d, b.num_heads, dtype)
+    elif kind == SLSTM:
+        p["slstm"] = ssm.init_slstm(gen, d, b.num_heads, dtype)
+    elif kind == RGLRU:
+        p["rglru"] = ssm.init_rglru(gen, d, _lru_width(rcfg), dtype)
+    else:
+        raise ValueError(kind)
+    if _has_ffn(rcfg):
+        p["norm2"] = init_rmsnorm(d, gen.device)
+        if b.moe is not None:
+            p["moe"] = init_moe(gen, d, b.d_ff, b.moe.num_experts, dtype)
+        else:
+            p["mlp"] = init_mlp(gen, d, b.d_ff, dtype)
+    return p
 
 
-def state_shape(rcfg: ResolvedConfig, kind: str, batch: int,
-                s_alloc: int) -> Tuple[int, ...]:
-    """Shape of a layer's K (and V) cache: a sliding-window layer's ring
-    never needs more positions than its window."""
-    if kind == ATTN_LOCAL:
-        s_alloc = min(rcfg.base.sliding_window, s_alloc)
-    return (batch, s_alloc, rcfg.padded_kv_heads, rcfg.head_dim)
+def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
+                kv_dtype: torch.dtype) -> LeafShapes:
+    """(shape, dtype) of every state leaf of one layer.  ``kv_dtype`` is
+    the storage dtype of attention caches only; a sliding-window layer's
+    ring never needs more positions than its window."""
+    b = rcfg.base
+    if kind in ATTN_KINDS:
+        if kind == ATTN_LOCAL:
+            s_alloc = min(b.sliding_window, s_alloc)
+        shape = (batch, s_alloc, rcfg.padded_kv_heads, rcfg.head_dim)
+        return {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
+    if kind == MLSTM:
+        return ssm.mlstm_state_shape(batch, b.num_heads,
+                                     b.d_model // b.num_heads)
+    if kind == SLSTM:
+        return ssm.slstm_state_shape(batch, b.d_model)
+    if kind == RGLRU:
+        return ssm.rglru_state_shape(batch, _lru_width(rcfg))
+    raise ValueError(kind)
 
 
 def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
-                     s_alloc: int, dtype, device) -> Dict[str, torch.Tensor]:
-    return init_kv_cache(*state_shape(rcfg, kind, batch, s_alloc), dtype,
-                         device)
+                     s_alloc: int, kv_dtype: torch.dtype, device
+                     ) -> Dict[str, torch.Tensor]:
+    """A fresh state: zeroed caches; recurrent states at their initial
+    values (mLSTM/sLSTM ``m`` at ``LOG_EPS``, sLSTM ``n`` at 1e-6)."""
+    b = rcfg.base
+    if kind == MLSTM:
+        return ssm.init_mlstm_state(batch, b.num_heads,
+                                    b.d_model // b.num_heads, device)
+    if kind == SLSTM:
+        return ssm.init_slstm_state(batch, b.d_model, device)
+    return {n: torch.zeros(shape, dtype=dt, device=device)
+            for n, (shape, dt) in state_shape(rcfg, kind, batch, s_alloc,
+                                              kv_dtype).items()}
 
 
 def block_apply(
@@ -77,21 +131,50 @@ def block_apply(
     slots: Optional[torch.Tensor] = None,      # [B] arena rows (paged)
     block_tables: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
+    positions3: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (y, new_state)."""
+    """Returns (y, new_state).  Attention caches are updated in place (the
+    returned state is the same dict); recurrent states come back as new
+    tensors.  A recurrent layer ignores ``kv_len``: it runs over the whole
+    chunk, bucket PAD included, as the JAX package's does."""
     b = rcfg.base
-    window = b.sliding_window if kind == ATTN_LOCAL else None
-    assert slots is None or kind == ATTN_FULL, \
-        "paged serving (slots) supports full-attention blocks only"
     h = rmsnorm_apply(p["norm1"], x, b.norm_eps)
-    attn_mode = {"prefill": "full", "extend": "extend",
-                 "decode": "decode"}[mode]
-    mix, new_state = attention_apply(
-        p["attn"], h, mode=attn_mode, causal=True, window=window,
-        positions=positions, cache=state, cache_len=cache_len,
-        q_offset=q_offset, kv_len=kv_len, slots=slots,
-        block_tables=block_tables, want_cache=True, qk_norm=b.qk_norm,
-        theta=b.rope_theta, norm_eps=b.norm_eps)
+    if kind in ATTN_KINDS:
+        window = b.sliding_window if kind == ATTN_LOCAL else None
+        assert slots is None or kind == ATTN_FULL, \
+            "paged serving (slots) supports full-attention blocks only"
+        attn_mode = {"prefill": "full", "extend": "extend",
+                     "decode": "decode"}[mode]
+        mix, new_state = attention_apply(
+            p["attn"], h, mode=attn_mode, causal=True, window=window,
+            positions=positions, positions3=positions3,
+            mrope_sections=b.mrope_sections, cache=state,
+            cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
+            slots=slots, block_tables=block_tables, want_cache=True,
+            qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps)
+    else:
+        assert slots is None, \
+            "paged serving (slots) supports attention-state models only"
+        if kind == MLSTM:
+            mix, new_state = ssm.mlstm_apply(
+                p["mlstm"], h, state=state,
+                mode="step" if mode == "decode" else "full",
+                heads=b.num_heads)
+        elif kind == SLSTM:
+            mix, new_state = ssm.slstm_apply(p["slstm"], h, state=state,
+                                             heads=b.num_heads)
+        elif kind == RGLRU:
+            mix, new_state = ssm.rglru_apply(p["rglru"], h, state=state)
+        else:
+            raise ValueError(kind)
     x = x + mix
-    h2 = rmsnorm_apply(p["norm2"], x, b.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, b.act), new_state
+    if _has_ffn(rcfg):
+        h2 = rmsnorm_apply(p["norm2"], x, b.norm_eps)
+        if b.moe is not None:
+            y, _ = moe_apply(p["moe"], h2, top_k=b.moe.top_k,
+                             capacity_factor=b.moe.capacity_factor,
+                             strategy=b.moe.strategy, act=b.act)
+        else:
+            y = mlp_apply(p["mlp"], h2, b.act)
+        x = x + y
+    return x, new_state

@@ -6,7 +6,9 @@ leading axis (``params["stages"][p]`` leaves are ``[R, ...]``) and runs
 the remaining ``tail`` layers unstacked; layer order is repetition-major:
 ``stages[0][0], stages[1][0], ..., stages[0][1], ..., tail[0], ...``.
 The port keeps one dict per layer in that order, with every leaf of the
-layer carried across (qwen3's ``q_norm``/``k_norm`` scales included).
+layer carried across (qwen3's ``q_norm``/``k_norm`` scales, MoE experts
+``[E, ...]``, sLSTM's ``r [4, H, dh, dh]`` and the recurrent state leaves
+included).
 Arrays arrive as numpy (``jax.tree.map(np.asarray, tree)`` on the
 caller's side), so this module imports nothing of JAX.
 """

@@ -1,5 +1,5 @@
-"""Primitive layers: RMS norm, rotary embeddings, SwiGLU MLP, embedding and
-the tied LM head.
+"""Primitive layers: RMS norm, rotary embeddings (M-RoPE included), SwiGLU
+MLP, embedding and the tied LM head.
 
 Functional pairs ``init_*(gen, ...) -> params`` / ``*_apply(params, x)``
 over plain dicts of tensors, with the JAX package's parameter layouts so
@@ -8,8 +8,9 @@ converted weights drop in unchanged.  Initializers draw from an explicit
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,11 +67,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: [B, S, H, Dh]; positions3: [B, S, 3] (t, h, w) position ids.
+    ``sections`` counts the frequency PAIRS of each of t, h, w
+    (``sum(sections) == Dh // 2``): frequency ``i`` rotates by the position
+    channel of its section, in f32, as the JAX package's ``apply_mrope``.
+    """
+    dh = x.shape[-1]
+    half = dh // 2
+    assert sum(sections) == half, (sections, dh)
+    inv = rope_freqs(dh, theta, x.device)                # [half]
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))         # [half]
+    pos = positions3.float()[..., sec_id]                # [B, S, half]
+    ang = pos * inv
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 
-ACTS = {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}
+# "gelu" is the tanh approximation, jax.nn.gelu's default
+ACTS = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "relu": F.relu}
 
 
 def init_mlp(gen: torch.Generator, d: int, f: int, dtype) -> dict:

@@ -2,12 +2,20 @@
 
 The JAX package scans one compiled superblock over layer-stacked
 parameters; here the layers are a Python loop over per-layer parameter
-dicts (``params["layers"][i]``), and serve states are per-layer KV caches
-(``states[i] = {"k": [B, S_alloc, KV, Dh], "v": ...}``); a sliding-window
-layer's cache is a ring of ``min(sliding_window, S_alloc)`` positions.
-Layer ``i`` has kind ``block_pattern[i % len(block_pattern)]``, the JAX
-package's repetition-major order (gemma3: five local layers, one global,
-repeated, then a local tail).
+dicts (``params["layers"][i]``), and serve states are per-layer dicts of
+leaves batched on axis 0: KV caches (``{"k": [B, S_alloc, KV, Dh], "v":
+...}``, a sliding-window layer's a ring of ``min(sliding_window,
+S_alloc)`` positions) or recurrent states (mLSTM ``C, n, m``; sLSTM ``c,
+n, h, m``; RG-LRU ``h, conv``; all f32).  Layer ``i`` has kind
+``block_pattern[i % len(block_pattern)]``, the JAX package's
+repetition-major order (gemma3: five local layers, one global, repeated,
+then a local tail; recurrentgemma: two RG-LRU layers and one local, then
+two RG-LRU).
+
+qwen2-vl inputs may carry ``patch_emb`` [B, S_img, D] (the stubbed vision
+frontend), prepended to the token embeddings, and ``positions3`` [B, S, 3]
+(t, h, w) for M-RoPE; text-only input and decode take t = h = w =
+position.
 
 Entry points, one per serving phase:
 
@@ -17,7 +25,8 @@ Entry points, one per serving phase:
 
 ``extend`` is the task-cascade primitive: document fraction f_j -> f_i reuse
 (the KV prefix for [0, q_offset) is already in ``states``).  ``extend`` and
-``decode_step`` update ``states`` IN PLACE and return the same object.
+``decode_step`` update attention caches IN PLACE; recurrent layers return
+new state tensors, so callers use the returned states.
 
 ``LM(rcfg, device=...)`` runs on the CUDA device by default and raises
 when none is present; tests pass ``device="cpu"``.
@@ -38,8 +47,9 @@ States = List[Dict[str, torch.Tensor]]
 
 
 class LM:
-    """Dense decoder LM: full-attention and sliding-window blocks, dense
-    FFN, optional ``sqrt(d_model)`` embedding scale (gemma3)."""
+    """Decoder LM: full-attention, sliding-window, mLSTM, sLSTM and RG-LRU
+    blocks; dense, MoE or no FFN; optional ``sqrt(d_model)`` embedding
+    scale (gemma3, recurrentgemma); M-RoPE and vision patches (qwen2-vl)."""
 
     def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda"):
         blocks.check_supported(rcfg)
@@ -68,30 +78,28 @@ class LM:
             "embed": init_embed(gen, self.rcfg.padded_vocab, b.d_model,
                                 self.dtype),
             "final_norm": init_rmsnorm(b.d_model, self.device),
-            "layers": [blocks.init_block(gen, self.rcfg, self.dtype)
-                       for _ in range(self.num_layers)],
+            "layers": [blocks.init_block(gen, self.rcfg, kind, self.dtype)
+                       for kind in self.kinds],
         }
 
     # ---------------------------------------------------------------- states
     def init_states(self, batch: int, s_alloc: int, kv_dtype=None) -> States:
-        """Zeroed per-layer KV caches; ``kv_dtype`` overrides the storage
-        dtype (bf16 arenas for f32 models)."""
+        """Fresh per-layer states: zeroed KV caches, recurrent states at
+        their initial values.  ``kv_dtype`` overrides the storage dtype of
+        the KV caches only (bf16 arenas for f32 models); recurrent states
+        stay f32."""
         dt = kv_dtype or self.dtype
         return [blocks.init_block_state(self.rcfg, kind, batch, s_alloc, dt,
                                         self.device)
                 for kind in self.kinds]
 
     def state_shapes(self, batch: int, s_alloc: int, kv_dtype=None
-                     ) -> List[Dict[str, Tuple[Tuple[int, ...],
-                                               torch.dtype]]]:
-        """(shape, dtype) of every state leaf, allocating nothing; the
-        shapes ``init_states`` allocates, per layer kind."""
+                     ) -> List[blocks.LeafShapes]:
+        """(shape, dtype) of every state leaf, allocating nothing: what
+        ``init_states`` allocates, per layer kind."""
         dt = kv_dtype or self.dtype
-        out = []
-        for kind in self.kinds:
-            shape = blocks.state_shape(self.rcfg, kind, batch, s_alloc)
-            out.append({"k": (shape, dt), "v": (shape, dt)})
-        return out
+        return [blocks.state_shape(self.rcfg, kind, batch, s_alloc, dt)
+                for kind in self.kinds]
 
     # ------------------------------------------------------- arena state API
     # Every state leaf is batched on axis 0, which is how the serving
@@ -151,14 +159,15 @@ class LM:
     # ------------------------------------------------------------------ core
     def _run_layers(self, params, x, *, mode, states=None, cache_len=None,
                     q_offset=0, kv_len=None, slots=None, block_tables=None,
-                    positions=None):
+                    positions=None, positions3=None):
         new_states = []
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
             x, ns = blocks.block_apply(
                 lp, x, kind=kind, rcfg=self.rcfg, mode=mode,
                 state=None if states is None else states[i],
                 cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
-                slots=slots, block_tables=block_tables, positions=positions)
+                slots=slots, block_tables=block_tables, positions=positions,
+                positions3=positions3)
             new_states.append(ns)
         return x, new_states
 
@@ -167,8 +176,14 @@ class LM:
         x = rmsnorm_apply(params["final_norm"], x, b.norm_eps)
         return lm_head_apply(params["embed"], x, b.logit_softcap)[:, 0]
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_apply(params["embed"], tokens).to(self.dtype)
+    def embed_inputs(self, params, batch: Dict[str, torch.Tensor]
+                     ) -> torch.Tensor:
+        """Token embeddings, with qwen2-vl's ``patch_emb`` (the stubbed
+        vision frontend) prepended, then the embedding scale."""
+        x = embed_apply(params["embed"], batch["tokens"]).to(self.dtype)
+        if (self.rcfg.base.frontend_stub == "vision_patches"
+                and "patch_emb" in batch):
+            x = torch.cat([batch["patch_emb"].to(self.dtype), x], dim=1)
         if self.rcfg.base.embed_scale:
             # the multiplier rounded to the model dtype first, as the JAX
             # package multiplies by ``jnp.asarray(sqrt(d), dtype)``
@@ -180,21 +195,24 @@ class LM:
     # ------------------------------------------------------------ entry pts
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 s_alloc: Optional[int] = None):
-        """Full prompt pass -> (last-token logits [B, V], states)."""
-        x = self._embed(params, batch["tokens"])
+        """Full prompt pass -> (last-token logits [B, V], states).
+        ``batch`` may carry ``patch_emb`` and ``positions3`` (qwen2-vl)."""
+        x = self.embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions3 = batch.get("positions3")
         if s_alloc:
             # prefill writes into preallocated caches via extend at offset 0
             states = self.init_states(B, s_alloc)
             x, new_states = self._run_layers(
                 params, x, mode="extend", states=states, q_offset=0,
-                positions=positions,
+                positions=positions, positions3=positions3,
                 cache_len=torch.zeros((B,), dtype=torch.int32,
                                       device=x.device))
         else:
             x, new_states = self._run_layers(params, x, mode="prefill",
-                                             positions=positions)
+                                             positions=positions,
+                                             positions3=positions3)
         return self._head(params, x[:, -1:]), new_states
 
     def extend(self, params, batch: Dict[str, torch.Tensor], states: States,
@@ -210,14 +228,14 @@ class LM:
         ``block_tables`` [B, nblocks] (paged mode only) redirects READS per
         cache block; writes still land in row ``slots[b]``.
         """
-        x = self._embed(params, batch["tokens"])
+        x = self.embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = q_offset + torch.arange(S, device=x.device)[None].expand(
             B, S)
         x, new_states = self._run_layers(
             params, x, mode="extend", states=states, q_offset=q_offset,
             kv_len=kv_len, slots=slots, block_tables=block_tables,
-            positions=positions)
+            positions=positions, positions3=batch.get("positions3"))
         return self._head(params, x[:, -1:]), new_states
 
     def decode_step(self, params, tokens: torch.Tensor, states: States,
@@ -229,8 +247,12 @@ class LM:
         and the step writes the token's KV at position ``pos[b]`` of row
         ``slots[b]`` in place (callers that must not dirty the row bracket
         the steps with ``take_kv_window``/``put_kv_window``)."""
-        x = self._embed(params, tokens[:, None])
+        x = self.embed_inputs(params, {"tokens": tokens[:, None]})
+        positions3 = None
+        if self.rcfg.base.mrope_sections is not None:
+            positions3 = pos[:, None, None].expand(pos.shape[0], 1, 3)
         x, new_states = self._run_layers(
             params, x, mode="decode", states=states, cache_len=pos,
-            slots=slots, block_tables=block_tables, positions=pos[:, None])
+            slots=slots, block_tables=block_tables, positions=pos[:, None],
+            positions3=positions3)
         return self._head(params, x), new_states

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts FFN: top-k router with capacity-based dispatch.
+
+The JAX package's ``tp_dense`` strategy, batched over rows: every batch row
+routes its own tokens into its own ``[E, C, D]`` expert buffer (the JAX
+package ``vmap``s ``_moe_tokens`` over rows), so a row's output does not
+depend on the other rows of its launch.  Within a row, assignments take
+buffer positions in token-major order (token ``t``'s ``k`` choices before
+token ``t + 1``'s); an assignment whose position reaches the capacity is
+DROPPED and contributes nothing.  The row capacity is
+``int(S * top_k * capacity_factor * 1.6 / E)``, at least 1, rounded up to
+a multiple of 128 once it reaches 128: a token kept in one pass can be
+dropped in another whose chunk length differs (decode has capacity 1 and
+drops nothing, since a token's ``top_k`` experts are distinct).
+
+Only kept assignments are written into the buffer.  Their (expert,
+position) pairs are unique within a row, so the write needs no atomic
+accumulation: it equals the JAX package's scatter-add (which adds zeros
+for the dropped ones) bit for bit and is deterministic on the card.
+Dropped assignments are written into one spare position past the
+capacity, which the expert products never read, so nothing syncs with the
+host.  The expert products are plain batched matrix products, as they are
+outside any Pallas kernel in the JAX package.
+
+``moe_apply`` takes the reference's ``strategy`` names; without a device
+mesh (the port has none yet) every strategy runs ``tp_dense``, as the
+JAX package's ``moe_apply`` does without one.  ``ep_a2a`` and ``tp_smap``
+(expert and tensor parallelism over a mesh) are not ported.
+
+``DROP_LOG``: when set to a list, every MoE layer appends the keep mask
+of its call (``[B, S, top_k]`` bool, on the device: nothing syncs), so a
+caller can count the dropped assignments of a pass or compare two passes'
+drop decisions; None (the default) records nothing.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .layers import ACTS, _dense_init
+
+STRATEGIES = ("tp_dense", "tp_smap", "ep_a2a")
+ROW_CAPACITY_SCALE = 1.6     # the reference's per-row capacity factor boost
+
+DROP_LOG: Optional[List[torch.Tensor]] = None
+
+
+def init_moe(gen: torch.Generator, d: int, f: int, num_experts: int,
+             dtype) -> Dict[str, torch.Tensor]:
+    return {
+        "router": _dense_init(gen, (d, num_experts), d, torch.float32),
+        "w1": _dense_init(gen, (num_experts, d, f), d, dtype),
+        "w3": _dense_init(gen, (num_experts, d, f), d, dtype),
+        "w2": _dense_init(gen, (num_experts, f, d), f, dtype),
+    }
+
+
+def _route(router_w: torch.Tensor, x: torch.Tensor, top_k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [..., T, D] -> (expert ids [..., T, K], combine weights [..., T, K],
+    router logits [..., T, E] in f32)."""
+    logits = x.float() @ router_w
+    weights, ids = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return ids, weights, logits
+
+
+def _dispatch_indices(ids: torch.Tensor, num_experts: int, capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Position of each (token, k) assignment in its expert's buffer.
+
+    ids [..., T, K] -> (pos [..., T, K], keep [..., T, K]): positions count
+    per row in token-major order; assignments at or past ``capacity`` are
+    dropped."""
+    lead, (T, K) = ids.shape[:-2], ids.shape[-2:]
+    flat = ids.reshape(*lead, T * K)
+    onehot = torch.nn.functional.one_hot(flat, num_experts)   # [..., TK, E]
+    pos_in_expert = torch.cumsum(onehot, dim=-2) - 1
+    pos = torch.gather(pos_in_expert, -1, flat[..., None])[..., 0]
+    pos = pos.reshape(ids.shape)
+    return pos, pos < capacity
+
+
+def _expert_ffn(w1, w3, w2, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """buf [E, N, D] -> [E, N, D] through each expert's gated MLP."""
+    a = ACTS[act]
+    h = a(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+    return torch.bmm(h, w2)
+
+
+def row_capacity(seq: int, top_k: int, capacity_factor: float,
+                 num_experts: int) -> int:
+    """Expert buffer positions of one row of ``seq`` tokens, in the JAX
+    package's order of float operations."""
+    row_cf = capacity_factor * ROW_CAPACITY_SCALE
+    cap = max(int(seq * top_k * row_cf / num_experts), 1)
+    return ((cap + 127) // 128) * 128 if cap >= 128 else cap
+
+
+def _moe_tokens(params, x: torch.Tensor, *, top_k: int, capacity: int,
+                act: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row MoE over x [B, S, D] -> (out [B, S, D], router logits
+    [B, S, E], expert ids [B, S, K])."""
+    B, S, D = x.shape
+    E = params["w1"].shape[0]
+    ids, weights, logits = _route(params["router"], x, top_k)
+    pos, keep = _dispatch_indices(ids, E, capacity)
+    if DROP_LOG is not None:
+        DROP_LOG.append(keep)
+    # kept assignments at unique (row, expert, position); dropped ones at
+    # the spare position ``capacity``, never read
+    slot = torch.where(keep, pos, capacity)
+    b_idx = torch.arange(B, device=x.device)[:, None, None].expand_as(ids)
+    src = x[:, :, None, :].expand(B, S, top_k, D)
+    buf = x.new_zeros((B, E, capacity + 1, D))
+    buf[b_idx, ids, slot] = src
+    buf = buf[:, :, :capacity]
+    # every expert over every row's buffer: [E, B * C, D]
+    flat = buf.permute(1, 0, 2, 3).reshape(E, B * capacity, D)
+    out_buf = _expert_ffn(params["w1"], params["w3"], params["w2"], flat, act)
+    out_buf = out_buf.reshape(E, B, capacity, D).permute(1, 0, 2, 3)
+    gathered = out_buf[b_idx, ids, torch.where(keep, pos, 0)]  # [B, S, K, D]
+    gathered = torch.where(keep[..., None], gathered.float(), 0.0)
+    out = (gathered * weights[..., None]).sum(-2).to(x.dtype)
+    return out, logits, ids
+
+
+def _aux_loss(router_logits: torch.Tensor, ids: torch.Tensor,
+              num_experts: int) -> torch.Tensor:
+    """Switch-style load-balance loss ``E * sum_e f_e * p_e`` over flat
+    tokens: logits [T, E], ids [T, K]."""
+    probs = torch.softmax(router_logits, dim=-1)
+    frac = torch.nn.functional.one_hot(ids[:, 0], num_experts).float().mean(0)
+    return num_experts * (frac * probs.mean(0)).sum()
+
+
+def moe_apply_tp_dense(params, x: torch.Tensor, *, top_k: int,
+                       capacity_factor: float, act: str = "silu"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (out [B, S, D], aux loss scalar), dispatch per row."""
+    B, S, D = x.shape
+    E = params["w1"].shape[0]
+    cap = row_capacity(S, top_k, capacity_factor, E)
+    out, logits, ids = _moe_tokens(params, x, top_k=top_k, capacity=cap,
+                                   act=act)
+    aux = _aux_loss(logits.reshape(B * S, E), ids.reshape(B * S, top_k), E)
+    return out, aux
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int, capacity_factor: float,
+              strategy: str = "tp_dense", act: str = "silu"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN by strategy name; with no device mesh every strategy
+    runs ``tp_dense``, as in the JAX package."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown MoE strategy {strategy!r}")
+    return moe_apply_tp_dense(params, x, top_k=top_k,
+                              capacity_factor=capacity_factor, act=act)

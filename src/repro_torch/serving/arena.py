@@ -140,7 +140,10 @@ class BucketArena:
 
         Device state is NOT zeroed: the new document's prefill overwrites
         [0, f_len) and every read is masked by per-slot valid lengths, so
-        stale KV past the new prefix is never visible.
+        stale KV past the new prefix is never visible.  A recurrent state
+        leaf (mLSTM, sLSTM, RG-LRU) is not masked: the new document's
+        prefill starts from the previous one's state, as in the reference
+        (kept for parity; ROADMAP Queue 3).
         """
         if self.sanitizer is not None:
             self.sanitizer.note_clear(self.bucket, slot)

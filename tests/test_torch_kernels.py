@@ -786,7 +786,7 @@ def test_cuda_flash_tc_ragged_edges(cuda, B, Sq, q_off, kv_valid, S_alloc,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 4])
 def test_cuda_flash_tc_head_dims_and_groups(cuda, Dh, g):
     """Every head_dim and GQA group size of the tensor-core body, at a
@@ -834,3 +834,68 @@ def test_cuda_fully_masked_rows_are_zero(cuda):
     kl = _dev(np.zeros(1, np.int32), torch.int32, cuda)
     dec = tops.decode_attention(q[:, 0], k, v, kl)
     assert torch.equal(dec, torch.zeros_like(dec))
+
+
+# ---------------------------------------------------------------------------
+# CUDA: head_dim 256 (recurrentgemma-2b's local layers: 10 query heads over
+# one KV head, window 2048)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,q_off,kv_valid,S_alloc,window,tb", [
+    (2, 200, 0, 200, 256, 64, None),    # windowed prefill
+    (2, 77, 130, 207, 240, None, 40),   # ragged extend, table block 40
+    (3, 64, 0, 64, 64, None, None),     # one tile
+])
+def test_cuda_flash_head_dim_256_matches_plain(cuda, dtype, B, Sq, q_off,
+                                               kv_valid, S_alloc, window, tb):
+    """Both flash bodies at head_dim 256 (the bf16 one with a two-stage K/V
+    ring and Q reloaded from shared memory) against the plain version,
+    paged == dense bitwise."""
+    out, plain = _extend_case(cuda, dtype, B, Sq, q_off, kv_valid, S_alloc,
+                              10, 1, 256, True, window, tb, 200 + Sq)
+    tol = EXTEND_TOL if dtype == torch.bfloat16 else _tol(dtype)
+    torch.testing.assert_close(out.float(), plain.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_head_dim_256_matches_plain_and_is_batch_invariant(cuda):
+    """bf16 decode at head_dim 256 over a ring of 2048 slots at the chunk
+    edges: against the plain version, paged == dense bitwise, two calls
+    equal and each sequence alone equal to its row of the batch."""
+    B, S, Hq, Hkv, Dh = 8, 2048, 10, 1, 256
+    N = B + 3
+    q = _dev(_normal(210, (B, Hq, Dh)), torch.bfloat16, cuda)
+    ka, va = (_dev(a, torch.bfloat16, cuda)
+              for a in _arena(211, N, S, Hkv, Dh))
+    slots = _dev(np.random.default_rng(212).permutation(N - 1)[:B]
+                 .astype(np.int32), torch.int32, cuda)
+    kl = _dev(_edge_lens(S), torch.int32, cuda)
+    full = tops.arena_decode_attention(q, ka, va, slots, kl)
+    plain = tdec.paged_decode_attention_plain(q, ka, va, slots, kl)
+    torch.testing.assert_close(full.float(), plain.float(),
+                               **_tol(torch.bfloat16))
+    assert torch.equal(tops.arena_decode_attention(q, ka, va, slots, kl),
+                       full)
+    kg, vg = ka[slots.long()], va[slots.long()]
+    assert torch.equal(tops.decode_attention(q, kg, vg, kl), full)
+    for b in range(B):
+        alone = torch.full_like(slots, N - 1)
+        alone[b] = slots[b]
+        assert torch.equal(
+            tops.arena_decode_attention(q, ka, va, alone, kl)[b], full[b])
+
+
+@pytest.mark.cuda
+def test_cuda_decode_f32_cache_head_dim_256_raises(cuda):
+    """An f32 cache at head_dim 256 has no decode kernel (a key's row is 64
+    16-byte pieces, more than a warp's lanes): the wrapper raises and never
+    runs the plain version."""
+    q = _dev(_normal(220, (2, 2, 256)), torch.float32, cuda)
+    k = _dev(_normal(221, (2, 64, 1, 256)), torch.float32, cuda)
+    kl = _dev(np.asarray([64, 3], np.int32), torch.int32, cuda)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tdec.decode_attention(q, k, k, kl)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tops.decode_attention(q, k, k, kl)

@@ -258,7 +258,8 @@ def test_embed_scale_rounds_multiplier_to_model_dtype():
         d_model=5376, num_heads=4, num_kv_heads=2, num_layers=1), tp=1)
     tm = TLM(rcfg, device="cpu")
     table = torch.full((4, 5376), 0.5, dtype=torch.bfloat16)
-    x = tm._embed({"embed": {"table": table}}, torch.tensor([[1]]))
+    x = tm.embed_inputs({"embed": {"table": table}},
+                        {"tokens": torch.tensor([[1]])})
     assert x.dtype == torch.bfloat16 and float(x[0, 0, 0]) == 0.5 * 73.5
 
 

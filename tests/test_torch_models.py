@@ -238,16 +238,25 @@ def test_lm_init_is_seeded():
 
 
 def test_unported_configs_raise():
+    """What the port does not run yet raises: bidirectional encoder
+    blocks, encoder layers, the audio frontend, and cross-attention
+    (``kv_ctx``)."""
     import dataclasses
-    from repro_torch.config import RGLRU
+    from repro_torch.config import ENC_ATTN
+    from repro_torch.models.attention import attention_apply
     cfg = t_get_reduced("llama3_2_1b", dtype="float32", vocab_size=512,
                         num_layers=2)
+    for bad in (dict(block_pattern=(ENC_ATTN,)),
+                dict(encoder_layers=2, encoder_seq_len=64),
+                dict(frontend_stub="audio_frames", frontend_len=8)):
+        with pytest.raises(NotImplementedError):
+            TLM(t_resolve(dataclasses.replace(cfg, **bad), tp=1),
+                device="cpu")
+    tm = TLM(_rcfg(), device="cpu")
+    p = tm.init(seed=0)["layers"][0]["attn"]
+    x = torch.zeros((1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError):
-        TLM(t_resolve(dataclasses.replace(cfg, block_pattern=(RGLRU,)),
-                      tp=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TLM(t_resolve(dataclasses.replace(cfg, mrope_sections=(4, 6, 6)),
-                      tp=1), device="cpu")
+        attention_apply(p, x, kv_ctx=(x, x))
 
 
 def _qwen_rcfg():

@@ -46,7 +46,19 @@ non-zero without printing a result:
             ``q_offset`` 3584, decode over a full and a partly filled
             2048-slot ring.  Then the four entry points again at
             qwen2-vl-2b's heads (12 / 2, head_dim 128) and phi3.5-moe's
-            (32 / 8, head_dim 128).
+            (32 / 8, head_dim 128).  ``kernels [whisper-base]``: the dense
+            flash kernel at whisper's heads (8 / 8, head_dim 64,
+            bidirectional): the encoder's 1536 frames, cross-attention of
+            1 and of 64 queries over 1536 keys; against the plain version,
+            two calls bitwise, timed beside SDPA and the bound.
+            ``grad [attention]``: ``FlashAttentionFn`` (the kernel's
+            forward, the PyTorch backward ``flash_attention_grad``)
+            against autograd through the plain version within
+            ``GRAD_REL_TOL`` of each gradient's peak, two calls bitwise
+            equal, at llama3.2-1b's training shapes (B 2, 2048, causal,
+            ragged ``kv_len``), whisper's encoder and cross shapes and
+            gemma3's window 1024; the backward's time beside the kernel's
+            forward and SDPA's forward plus backward.
 3. serving  a ``CascadeServer`` with proxy and oracle backends, both
             full-width llama3.2-1b in bf16 (random weights, seeds 1 and 2),
             serving two registered queries over a 32-document corpus, three
@@ -123,10 +135,30 @@ non-zero without printing a result:
    each model, one serving run, the same-op ladder of ``serve [prefix]``
    on each layout, a gemma3-oracle serving run, and a drain of 4
    documents in each of the moe-oracle and recurrent cells.
-6. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
+6. training (after the earlier phases' models are freed)
+            ``train [llama3.2-1b]``: full width and depth, bf16
+            parameters, f32 moments (~16 GB of state): every leaf a
+            finite nonzero gradient; one step timed in its parts
+            (forward, backward, optimizer; the attention backward and
+            forward by CUDA events); 20 steps of ``make_train_step`` on
+            ``SyntheticLMTask(vocab 128256, seq 2048)``, batch 2, every
+            loss finite and the mean of the last five below that of the
+            first five, the trajectory,
+            step wall and peak memory printed; a ``Checkpointer``
+            checkpoint restored bitwise, 2 resumed steps held against 2
+            straight ones within twice the spread of two resumed runs.
+            ``models [whisper-base]``: full width and depth (6 + 6
+            layers, 1536 frames, vocab 51865), bf16: encode, prefill 64
+            tokens into caches of 128, 32 decode steps; the logits against
+            the cacheless forward within ``FAMILY_LOGIT_TOL``, launches of
+            the flash and decode kernels counted.  ``train
+            [whisper-base]``: 5 steps of ``make_train_step`` on 448-token
+            sequences with seeded ``frame_emb``.
+7. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
    the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
    (inflight 1), the families' model checks, moe-oracle and recurrent
-   serving (inflight 1) and build runs, each counted from zero;
+   serving (inflight 1), build, llama3.2-1b training and whisper's model
+   check and training runs, each counted from zero;
    ``relevance_score`` also carries ``stream_ms``), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -135,6 +167,7 @@ It imports only ``repro_torch`` (from ``src/`` beside this file).
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import re
@@ -2018,6 +2051,479 @@ def profile_phase(models, params, docs, oracle, gemma3) -> None:
                 wall)
 
 
+# ---------------------------------------------------------------------------
+# whisper-base and training
+# ---------------------------------------------------------------------------
+
+# The attention gradient on the card (``FlashAttentionFn``: the flash
+# kernel's forward, ``flash_attention_grad``'s f32 backward, gradients
+# rounded to bf16) against autograd through the plain version on the same
+# bf16 inputs (f32 throughout, rounded to bf16 at the end).  The two
+# differ where the backward reads the kernel's bf16 output in
+# ``rowsum(dout * out)`` (the plain version's own output is f32 before
+# its rounding) and by the final bf16 rounding: a few bf16 ulps of the
+# largest gradient.  The bound is 2**-6 of each gradient's largest
+# magnitude (4 ulps there); a mask off by one key moves a gradient by
+# the order of the gradient itself.
+GRAD_REL_TOL = 2 ** -6
+# (case, B, Sq, Skv, Hq, Hkv, Dh, mask, kv_len per row)
+GRAD_CASES = (
+    ("llama3.2-1b training, causal, kv_len [2048, 1500]", 2, 2048, 2048,
+     32, 8, 64, dict(causal=True), [2048, 1500]),
+    ("whisper encoder, bidirectional", 2, 1536, 1536, 8, 8, 64,
+     dict(causal=False), None),
+    ("whisper cross, 64 over 1536", 8, 64, 1536, 8, 8, 64,
+     dict(causal=False), None),
+    ("gemma3-27b, window 1024", 1, 2048, 2048, 32, 16, 128,
+     dict(causal=True, window=1024), None),
+)
+TRAIN_STEPS = 20
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 2
+WHISPER_PROMPT = 64
+WHISPER_ALLOC = 128
+WHISPER_DECODE = 32
+WHISPER_TRAIN_STEPS = 5
+WHISPER_TRAIN_SEQ = 448       # whisper's decoder context (n_text_ctx)
+
+
+def whisper_kernel_phase(dev, timer):
+    """``kernels [whisper-base]``: the dense flash kernel at whisper's
+    attention shapes (8 query / 8 KV heads, head_dim 64, bf16) against
+    its plain version: the encoder's bidirectional self-attention over
+    1536 frames, cross-attention of one decode token and of a 64-token
+    prompt over 1536 keys.  Two calls bitwise equal; kernel, plain and
+    SDPA (no mask) times beside the bound.  Returns the rows."""
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    H, Dh, Skv = 8, 64, 1536
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows = []
+    for case, B, Sq in (("encoder Sq=Skv=1536", 2, Skv),
+                        ("cross Sq=1 over 1536", 8, 1),
+                        ("cross Sq=64 over 1536", 8, 64)):
+        q, k, v = rand(B, Sq, H, Dh), rand(B, Skv, H, Dh), rand(B, Skv, H, Dh)
+        kw = dict(causal=False)
+        out = ops.attention(q, k, v, **kw)
+        plain = fla.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), plain.float(), **EXTEND_TOL)
+        assert torch.equal(ops.attention(q, k, v, **kw), out), \
+            f"whisper {case}: two calls differ"
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * Dh * Sq * Skv)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows.append(dict(
+            name="flash_attention", case=case,
+            max_abs_err=max_err(out, plain),
+            ms=timer.ms(lambda: ops.attention(q, k, v, **kw)),
+            plain_ms=timer.ms(lambda: fla.flash_attention_plain(q, k, v,
+                                                                **kw)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)),
+            bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        print(f"kernel flash_attention [whisper-base shapes, {r['case']}]: "
+              f"max_abs_err {r['max_abs_err']:.3g} (tol "
+              f"atol={EXTEND_TOL['atol']:g} rtol={EXTEND_TOL['rtol']:g}), "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    print("kernels [whisper-base]: encoder and cross-attention: two calls "
+          "bitwise equal")
+    return rows
+
+
+def grad_phase(dev, timer):
+    """``grad [attention]``: ``FlashAttentionFn``'s dq/dk/dv (kernel
+    forward, PyTorch backward) against ``torch.autograd.grad`` through
+    the plain version on the same bf16 inputs, within ``GRAD_REL_TOL`` of
+    each gradient's largest magnitude; two calls bitwise equal.  Shapes:
+    llama3.2-1b training (B 2, 2048, 32/8, causal, ragged ``kv_len``),
+    whisper's encoder (1536, bidirectional) and cross-attention (64 over
+    1536), gemma3's window 1024 (2048, 32/16, head_dim 128).  Times the
+    backward alone (``flash_attention_grad`` on the saved tensors) beside
+    the kernel's forward and SDPA's forward plus backward (with the same
+    mask; a yardstick only).  Returns the llama row's times."""
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    out_row = None
+    for case, B, Sq, Skv, Hq, Hkv, Dh, kw, kl in GRAD_CASES:
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q, k, v = rand(B, Sq, Hq, Dh), rand(B, Skv, Hkv, Dh), \
+            rand(B, Skv, Hkv, Dh)
+        dout = rand(B, Sq, Hq, Dh)
+        kv_len = None if kl is None else torch.tensor(
+            kl, dtype=torch.int32, device=dev)
+        kw = dict(kw, kv_len=kv_len)
+
+        def kernel_grads():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = ops.attention(*leaves, **kw)
+            assert out.grad_fn is not None and \
+                type(out.grad_fn).__name__.startswith("FlashAttentionFn")
+            return out, torch.autograd.grad(out, leaves, dout)
+
+        out, grads = kernel_grads()
+        assert all(torch.equal(a, b) for a, b in zip(grads,
+                                                     kernel_grads()[1])), \
+            f"grad [{case}]: two calls differ"
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ref = torch.autograd.grad(fla.flash_attention_plain(*leaves, **kw),
+                                  leaves, dout)
+        errs = []
+        for name, a, b in zip("qkv", grads, ref):
+            peak = float(b.float().abs().max())
+            err = max_err(a, b)
+            errs.append(f"d{name} {err:.3g} of peak {peak:.3g}")
+            assert torch.isfinite(a.float()).all() and \
+                err <= GRAD_REL_TOL * peak, (case, name, err, peak)
+        del ref, leaves
+        saved = (q, k, v, out.detach(), dout)
+        bwd = timer.ms(lambda: fla.flash_attention_grad(*saved, **kw),
+                       reps=5)
+        fwd = timer.ms(lambda: ops.attention(q, k, v, **kw), reps=5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None
+        if kl is not None or kw.get("window") or kw["causal"]:
+            lens = kv_len if kv_len is not None else torch.full(
+                (B,), Skv, dtype=torch.int32, device=dev)
+            mask = (window_mask(lens, Sq, Skv, 0, kw["window"], dev)
+                    if kw.get("window") else
+                    sdpa_mask(lens, Sq, Skv, 0, kw["causal"], dev))
+        dt = dout.transpose(1, 2)
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qt, kt, vt), dt)
+
+        lib = timer.ms(sdpa_fb, reps=5)
+        print(f"grad [attention, {case}]: {', '.join(errs)} (bound "
+              f"{GRAD_REL_TOL:g} x peak); two calls bitwise equal; "
+              f"backward {bwd:.4f} ms, kernel forward {fwd:.4f} ms, sdpa "
+              f"forward + backward {lib:.4f} ms")
+        if out_row is None:
+            out_row = dict(bwd_ms=bwd, fwd_ms=fwd, sdpa_fb_ms=lib)
+        del saved, out, grads
+    return out_row
+
+
+def _nonzero_finite_grads(model, params, batch) -> float:
+    """One loss and gradient outside the step: every leaf's gradient
+    finite and nonzero.  Returns the loss."""
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = model.loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    for (name, _), gr in zip(leaves_with_paths(params), grads):
+        assert torch.isfinite(gr.float()).all(), f"{name}: non-finite grad"
+        assert float(gr.float().abs().max()) > 0, f"{name}: zero gradient"
+    loss = float(loss.detach())
+    print(f"train [{model.rcfg.base.name}]: every one of {len(grads)} "
+          f"leaves has a finite nonzero gradient (loss {loss:.4f})")
+    return loss
+
+
+def _timed_step_parts(model, params, opt, batch, tc) -> dict:
+    """One training step cut into its parts on the host clock around
+    synchronised work: forward (the loss), backward, optimizer; the
+    attention backward's device time inside the backward from CUDA events
+    around every ``flash_attention_grad`` call, the attention forward's
+    from events around every kernel launch."""
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_loop import batch_to_device
+    from repro_torch.models.convert import jax_ndims
+    from repro_torch.tree import leaves, tree_map
+
+    spans = {"attn_bwd": [], "attn_fwd": []}
+    orig_grad, orig_fwd = fla.flash_attention_grad, fla.flash_attention
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return wrapped
+
+    fla.flash_attention_grad = timed(orig_grad, "attn_bwd")
+    fla.flash_attention = timed(orig_fwd, "attn_fwd")
+    try:
+        batch = batch_to_device(batch, model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = model.loss(live, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves(live))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        it = iter(grads)
+        adamw_update(tc.opt, params, tree_map(lambda _: next(it), params),
+                     opt, jax_ndims(params, model.rcfg))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        fla.flash_attention_grad, fla.flash_attention = orig_grad, orig_fwd
+    dev_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in spans.items()}
+    return dict(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+                opt_ms=(t3 - t2) * 1e3, step_ms=(t3 - t0) * 1e3,
+                attn_bwd_ms=dev_ms["attn_bwd"],
+                attn_fwd_ms=dev_ms["attn_fwd"],
+                attn_bwd_calls=len(spans["attn_bwd"]))
+
+
+def train_llama_phase():
+    """``train [llama3.2-1b]``: full width and depth (16 layers), bf16
+    parameters, f32 moments; ``TRAIN_STEPS`` steps of ``make_train_step``
+    on ``SyntheticLMTask(vocab 128256, seq 2048)``, batch 2, from a
+    ``DataPipeline``.  Every loss finite, every leaf a finite nonzero
+    gradient, the mean loss of the last five steps below the first five;
+    then a ``Checkpointer``
+    checkpoint, restored bitwise, resumed 2 steps and held against 2
+    straight steps within the spread of two resumed runs.  Returns the
+    launch counts of the 20 steps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataPipeline, ShardPlan,
+                                           SyntheticLMTask)
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_loop import (TrainConfig, batch_to_device,
+                                              make_train_step)
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config("llama3_2_1b")
+    model = LM(resolve(cfg, tp=1), device="cuda")
+    params = model.init(seed=3)
+    opt = init_opt_state(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in leaves((params, opt))) / 1e9
+    print(f"train [llama3.2-1b]: full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {model.rcfg.padded_vocab}), "
+          f"{n_params / 1e9:.3f} B params bf16, moments f32: "
+          f"{state_gb:.2f} GB of state; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    tc = TrainConfig(opt=OptimizerConfig(lr=3e-4, warmup_steps=5,
+                                         total_steps=TRAIN_STEPS + 2))
+    step = make_train_step(model, None, tc)
+    task = SyntheticLMTask(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ)
+    plan = ShardPlan(n_shards=2, n_hosts=1)
+
+    def pipe_at(n):
+        p = DataPipeline(task, plan, host=0,
+                         batch_per_shard=TRAIN_BATCH // 2)
+        p.step = n
+        return p
+
+    _nonzero_finite_grads(model, params,
+                          batch_to_device(next(pipe_at(0)), model.device))
+    # one step (on a batch of its own) cut into its parts, then the run
+    parts = _timed_step_parts(model, params, opt, next(pipe_at(99)), tc)
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe, losses, walls = pipe_at(0), [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, next(pipe))
+        loss = float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        assert math.isfinite(loss), (i, loss)
+        losses.append(loss)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train [llama3.2-1b]: losses {[round(l, 4) for l in losses]}")
+    # each step's batch holds new random sequences, so single losses
+    # scatter by ~0.2: the check compares the first five with the last five
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    assert last < first, ("the loss did not fall", first, last)
+    steady = sorted(walls[2:])[len(walls[2:]) // 2]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    print(f"train [llama3.2-1b]: mean loss of the first five steps "
+          f"{first:.4f} -> the last five {last:.4f}; step wall median "
+          f"{steady * 1e3:.1f} "
+          f"ms (first {walls[0] * 1e3:.1f} ms), {tok_s:.0f} tokens/s; peak "
+          f"memory {peak:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"train [llama3.2-1b]: one step in parts: forward "
+          f"{parts['fwd_ms']:.1f} ms, backward {parts['bwd_ms']:.1f} ms, "
+          f"optimizer {parts['opt_ms']:.1f} ms, step {parts['step_ms']:.1f} "
+          f"ms; attention backward {parts['attn_bwd_ms']:.1f} ms device "
+          f"over {parts['attn_bwd_calls']} layers "
+          f"({100 * parts['attn_bwd_ms'] / parts['step_ms']:.1f}% of the "
+          f"step), attention forward kernels {parts['attn_fwd_ms']:.1f} ms "
+          f"({100 * parts['attn_fwd_ms'] / parts['step_ms']:.1f}%), "
+          f"optimizer {100 * parts['opt_ms'] / parts['step_ms']:.1f}%")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = Checkpointer(d, keep=1)
+        at = int(opt.step)
+        t0 = time.perf_counter()
+        ck.save(at, {"params": params, "opt": opt})
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        # restore reads only each leaf's path, device and dtype
+        like = tree_map(lambda t: t.new_empty(0),
+                        {"params": params, "opt": opt})
+        t0 = time.perf_counter()
+        restored = ck.restore(at, like)
+        t_restore = time.perf_counter() - t0
+        for a, b in zip(leaves((params, opt)), leaves(restored)):
+            assert a.dtype == b.dtype and torch.equal(a, b), \
+                "restore is not bitwise"
+        print(f"train [llama3.2-1b]: checkpoint of {state_gb:.2f} GB saved "
+              f"in {t_save:.1f} s, restored bitwise in {t_restore:.1f} s")
+
+        def two_steps(p, o):
+            it = pipe_at(TRAIN_STEPS)
+            for _ in range(2):
+                p, o, _ = step(p, o, next(it))
+            return p
+
+        straight = two_steps(params, opt)          # in place
+        del opt
+        resumed = two_steps(restored["params"], restored["opt"])
+        del restored
+        again = ck.restore(at, like)
+        resumed2 = two_steps(again["params"], again["opt"])
+        del again
+        diff = lambda a, b: max(max_err(x, y) for x, y in  # noqa: E731
+                                zip(leaves(a), leaves(b)))
+        spread = diff(resumed, resumed2)
+        err = diff(straight, resumed)
+        print(f"train [llama3.2-1b]: resumed 2 steps vs 2 straight steps: "
+              f"max |param diff| {err:.3g}; two resumed runs differ by "
+              f"{spread:.3g} (bound: 2 x that spread)")
+        assert err <= 2 * spread, (err, spread)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return counts, dict(parts, peak_gb=peak, step_wall_ms=steady * 1e3,
+                        losses=losses)
+
+
+def whisper_phase():
+    """``models [whisper-base]`` + ``train [whisper-base]``: full width
+    and depth (6 + 6 layers, d_model 512, 1536 frames, vocab 51865), bf16,
+    random weights (seed 4), frame embeddings from a seed.  Encode,
+    prefill a 64-token prompt into self caches of 128 positions, run 32
+    decode steps (teacher-forced tokens); the prefill's last logits and
+    every decode step's are held against the cacheless forward of the
+    same 96 tokens within ``FAMILY_LOGIT_TOL``.  Then 5 steps of
+    ``make_train_step`` on 448-token sequences with seeded
+    ``frame_emb``: finite losses, every leaf a finite nonzero gradient.
+    Returns (model-check launches, training launches)."""
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMTask
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_loop import (TrainConfig, batch_to_device,
+                                              make_train_step)
+    from repro_torch.tree import leaves
+
+    cfg = get_config("whisper_base")
+    model = WhisperModel(resolve(cfg, tp=1), device="cuda")
+    params = model.init(seed=4)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"models [whisper-base]: full width and depth ({cfg.encoder_layers}"
+          f" encoder + {cfg.num_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.encoder_seq_len} frames, vocab {model.rcfg.padded_vocab}), "
+          f"bf16, {n_bytes / 1e6:.1f} MB of random weights (seed 4)")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, n = 2, WHISPER_PROMPT + WHISPER_DECODE + 1
+    frames = (torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                          generator=g, device="cuda") * 0.02)
+    toks = torch.randint(9, cfg.vocab_size, (B, n), generator=g,
+                         device="cuda")
+    _zero_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, st = model.prefill(
+            params, {"frame_emb": frames,
+                     "tokens": toks[:, :WHISPER_PROMPT]},
+            s_alloc=WHISPER_ALLOC)
+        got = [logits]
+        for i in range(WHISPER_PROMPT, n - 1):        # 32 decode steps
+            logits, st = model.decode_step(
+                params, toks[:, i], st,
+                torch.full((B,), i, dtype=torch.int32, device="cuda"))
+            got.append(logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        full, _ = model.forward(params, {"frame_emb": frames,
+                                         "tokens": toks[:, :n - 1]})
+    ref = full[:, WHISPER_PROMPT - 1:]
+    got = torch.stack(got, 1)
+    err = max_err(got, ref)
+    print(f"models [whisper-base]: prefill {WHISPER_PROMPT} (s_alloc "
+          f"{WHISPER_ALLOC}) + {WHISPER_DECODE} decode steps in "
+          f"{wall:.2f} s: max |logit - cacheless forward| {err:.4f} over "
+          f"{WHISPER_DECODE + 1} positions (tol {FAMILY_LOGIT_TOL}, logit std "
+          f"{float(ref.std()):.3f}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    assert torch.isfinite(got).all() and err <= FAMILY_LOGIT_TOL, err
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    del st, full, got, ref
+
+    task = SyntheticLMTask(vocab_size=cfg.vocab_size,
+                           seq_len=WHISPER_TRAIN_SEQ)
+    rng = np.random.default_rng(9)
+
+    def batch(i):
+        b = task.batch(9, 0, i, B)
+        b["frame_emb"] = (0.02 * rng.standard_normal(
+            (B, cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)
+        return b
+
+    _nonzero_finite_grads(model, params,
+                          batch_to_device(batch(0), model.device))
+    opt = init_opt_state(params)
+    step = make_train_step(model, None, TrainConfig(opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=WHISPER_TRAIN_STEPS)))
+    _zero_counts()
+    losses, walls = [], []
+    for i in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch(i))
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        assert math.isfinite(losses[-1]), losses
+    train_counts = _counts()
+    print(f"train [whisper-base]: {WHISPER_TRAIN_STEPS} steps of "
+          f"make_train_step, batch {B} x {WHISPER_TRAIN_SEQ} tokens over "
+          f"{cfg.encoder_seq_len} frames: losses "
+          f"{[round(l, 4) for l in losses]}, step wall "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; launches "
+          f"{ {k: v for k, v in train_counts.items() if v} }")
+    assert train_counts["flash_attention"] > 0
+    return counts, train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2092,6 +2598,8 @@ def main() -> int:
           "qwen2-vl-2b shapes")
     phase("kernels [phi3.5-moe]", kernel_phase, dev, timer, 32, 8, 128,
           "phi3.5-moe shapes")
+    phase("kernels [whisper-base]", whisper_kernel_phase, dev, timer)
+    phase("grad [attention]", grad_phase, dev, timer)
     launches, models, params, docs = phase("serve", serving_phase)
     prefix_launches = phase("serve [prefix]", prefix_serving_phase, models,
                             params, docs)
@@ -2113,14 +2621,25 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_phase(models, params, docs, engine.backends["oracle"],
                       (g_model, g_params, g_cascades, g_docs))
+    # training holds ~16 GB of llama3.2-1b state besides its activations:
+    # free the serving, gemma3 and build models first
+    del models, params, docs, g_model, g_params, g_cascades, g_docs
+    del engine, restr, build_docs, reordered
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, _ = phase("train [llama3.2-1b]", train_llama_phase)
+    whisper_launches, whisper_train_launches = phase(
+        "models [whisper-base] + train [whisper-base]", whisper_phase)
     for r in rows:
         # each path's run, counted from zero: serving, prefix, chaos,
         # gemma3 oracle, the families' model checks and their two serving
-        # paths, build
+        # paths, build, llama3.2-1b training, whisper's model check and
+        # its training
         r["launches"] = sum(c[r["name"]] for c in (
             launches, prefix_launches, chaos_launches, gemma3_launches,
             *moe_model_launches, moe_launches, *rec_model_launches,
-            rec_launches, build_launches))
+            rec_launches, build_launches, train_launches, whisper_launches,
+            whisper_train_launches))
         assert r["launches"] > 0, r["name"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

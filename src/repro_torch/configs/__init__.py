@@ -13,10 +13,12 @@ from ..config import ModelConfig, reduced
 
 ARCHS: List[str] = [
     "gemma3_27b",
+    "minitron_4b",
     "llama3_2_1b",
     "qwen3_1_7b",
     "qwen2_vl_2b",
     "phi3_5_moe",
+    "whisper_base",
     "xlstm_350m",
     "recurrentgemma_2b",
 ]
@@ -24,10 +26,12 @@ ARCHS: List[str] = [
 # public ids (dashes) -> module names
 ALIASES: Dict[str, str] = {
     "gemma3-27b": "gemma3_27b",
+    "minitron-4b": "minitron_4b",
     "llama3.2-1b": "llama3_2_1b",
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "whisper-base": "whisper_base",
     "xlstm-350m": "xlstm_350m",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }

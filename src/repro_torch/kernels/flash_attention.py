@@ -23,10 +23,20 @@ bf16 q with a bf16 cache runs the tensor-core body (bf16 products, the
 softmax weights rounded to bf16 for P.V, f32 accumulation), which needs
 16-byte aligned q/k/v data and strides that are multiples of 8 elements;
 an f32 q or cache runs the f32 FMA body.
+
+Training: ``FlashAttentionFn`` is the differentiable dense entry.  Its
+forward is the kernel on a CUDA tensor (the plain version on a CPU
+tensor); its backward is ``flash_attention_grad``, PyTorch on any
+device.  No Pallas kernel of the JAX package has a backward: it trains
+through ``xla_flash_attention``, a blocked ``lax.scan`` that XLA
+differentiates, so the backward here is the same gradient written out
+(f32 recomputed scores, the ``rowsum(dout * out)`` identity), not a
+port of a TPU kernel.  Its cost on the card stands beside SDPA's in
+``PERF.md``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -154,3 +164,117 @@ def paged_flash_attention_plain(q, k_arena, v_arena, slots, *, kv_valid,
     return ref.mha_reference(q, k[:, :kv_valid], v[:, :kv_valid],
                              causal=causal, window=window, q_offset=q_offset,
                              kv_len=kv_len, sm_scale=sm_scale)
+
+
+# Score elements (f32) a backward query block may hold at once: 64 Mi
+# elements, 256 MiB per [B, Hq, block, Skv] temporary.
+GRAD_BLOCK_ELEMS = 1 << 26
+
+
+def _grad_mask(i0: int, i1: int, k0: int, k1: int, *, causal: bool,
+               window: Optional[int], q_offset: int,
+               kv_len: Optional[torch.Tensor], device) -> torch.Tensor:
+    """The forward's mask predicate for queries ``[i0, i1)`` over keys
+    ``[k0, k1)``: [B or 1, i1 - i0, k1 - k0] bool, True = visible."""
+    qpos = q_offset + torch.arange(i0, i1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((i1 - i0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None and window > 0:
+        mask &= kpos > qpos - window
+    mask = mask[None]
+    if kv_len is not None:
+        mask = mask & (kpos[None] < kv_len.to(device).long()[:, None, None])
+    return mask
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, dout: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         q_offset: int = 0,
+                         kv_len: Optional[torch.Tensor] = None,
+                         sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` for the upstream ``dout``.
+
+    Recomputes the masked scores in f32 one query block at a time (at
+    most ``GRAD_BLOCK_ELEMS`` score elements), over only the keys that the
+    causal and window masks leave visible to some query of the block;
+    normalises them as the forward does (masked keys weigh 0, a row's sum
+    clamped at 1e-30), and forms ``dS = P * (dout V^T - rowsum(dout *
+    out))``.  dk and dv sum the query heads of each GQA group.  A query
+    row with no visible key gets zero gradients, as its forward output is
+    zero.  Returns dq in q's dtype, dk and dv in k's."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (Dh ** 0.5)
+    kf = k.float().permute(0, 2, 1, 3)                   # [B, Hkv, Skv, Dh]
+    vf = v.float().permute(0, 2, 1, 3)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq = torch.zeros((B, Sq, Hq, Dh), dtype=torch.float32, device=q.device)
+    bq = max(1, min(Sq, GRAD_BLOCK_ELEMS // max(B * Hq * Skv, 1)))
+
+    def heads(t):   # [B, n, Hq, Dh] -> [B, Hkv, g * n, Dh] (f32)
+        n = t.shape[1]
+        return (t.float().reshape(B, n, Hkv, g, Dh).permute(0, 2, 3, 1, 4)
+                .reshape(B, Hkv, g * n, Dh))
+
+    for i0 in range(0, Sq, bq):
+        i1 = min(i0 + bq, Sq)
+        n = i1 - i0
+        # keys some query of the block may see: causal caps the top,
+        # the window the bottom
+        k1 = min(Skv, q_offset + i1) if causal else Skv
+        k0 = max(0, q_offset + i0 - window + 1) if window else 0
+        if k1 <= k0:
+            continue
+        kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        qs = heads(q[:, i0:i1]) * scale
+        do = heads(dout[:, i0:i1])
+        s = (qs @ kb.transpose(-1, -2)).view(B, Hkv, g, n, k1 - k0)
+        mask = _grad_mask(i0, i1, k0, k1, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len,
+                          device=q.device)[:, None, None]
+        s = torch.where(mask, s, ref.NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        p = p.view(B, Hkv, g * n, k1 - k0)
+        dp = do @ vb.transpose(-1, -2)
+        rowsum = (do * heads(out[:, i0:i1])).sum(-1, keepdim=True)
+        ds = p * (dp - rowsum)
+        dv[:, :, k0:k1] += p.transpose(-1, -2) @ do
+        dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qs
+        dq[:, i0:i1] = ((ds @ kb) * scale).view(B, Hkv, g, n, Dh) \
+            .permute(0, 3, 1, 2, 4).reshape(B, n, Hq, Dh)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable dense flash attention.  Forward: the CUDA kernel on
+    a CUDA ``q`` (through ``flash_attention``, counted in ``LAUNCHES``),
+    the plain version on a CPU one; backward: ``flash_attention_grad``.
+    No gradient flows to ``kv_len``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, window, q_offset, sm_scale):
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len, sm_scale=sm_scale)
+        if q.is_cuda:
+            out = flash_attention(q, k, v, **kw)
+        else:
+            out = flash_attention_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, kv_len)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      sm_scale=sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grad(q, k, v, out, dout,
+                                          kv_len=kv_len, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

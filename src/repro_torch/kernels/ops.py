@@ -96,9 +96,18 @@ def attention(
     ``kv_len`` [B] masks per-row KV padding: serving batches are bucket-
     padded, so a document shorter than its bucket carries PAD keys past its
     true length — with ``kv_len`` those keys are invisible to every query.
+
+    With grad mode on and q, k or v requiring grad (training), the call
+    goes through ``FlashAttentionFn``: the same forward (the kernel on a
+    CUDA tensor), plus its backward.  Otherwise nothing is recorded.
     """
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               sm_scale=sm_scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        kl = _i32(kv_len) if q.is_cuda else kv_len
+        return _fla.FlashAttentionFn.apply(q, k, v, kl, causal, window,
+                                           q_offset, sm_scale)
     if q.is_cuda:
         return _fla.flash_attention(q, k, v, kv_len=_i32(kv_len), **kw)
     return _fla.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)

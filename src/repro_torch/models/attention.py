@@ -53,8 +53,16 @@ M-RoPE (qwen2-vl): with ``mrope_sections`` the rotation reads
 ``positions3`` [B, S, 3] (t, h, w) instead of ``positions``; text-only
 input takes t = h = w = position.  Keys go into the cache post-rotation,
 so decode and extend need no M-RoPE knowledge beyond their own
-positions.  Cross-attention (``kv_ctx``) is not ported yet and raises
-``NotImplementedError``.
+positions.
+
+Cross-attention (whisper's decoder): with ``kv_ctx=(k, v)`` the block
+projects only the queries and attends, bidirectionally, over K/V that the
+caller computed once from the encoder output; no cache is written and no
+rotation applied.  ``use_rope=False`` skips the rotation of self-attention
+too (whisper adds absolute sinusoids to its inputs instead).
+
+Training runs ``full`` mode with ``want_cache=False``: ``ops.attention``
+then records the gradient (``kernels.flash_attention.FlashAttentionFn``).
 """
 from __future__ import annotations
 
@@ -166,14 +174,21 @@ def attention_apply(
     norm_eps: float = 1e-6,
     mrope_sections=None,
     positions3: Optional[torch.Tensor] = None,  # [B, S, 3] for M-RoPE
-    kv_ctx=None,
+    use_rope: bool = True,                     # whisper: absolute sinusoids
+    kv_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross K, V
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if kv_ctx is not None:
-        raise NotImplementedError("cross-attention is not ported yet")
     local = window is not None and window > 0
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
+    h, dv, d = p["wo"].shape
+
+    if kv_ctx is not None:
+        # cross-attention: K/V precomputed from the encoder output
+        k, v = kv_ctx
+        out = ops.attention(_proj(x, p["wq"]), k, v, causal=False,
+                            sm_scale=sm_scale)
+        return out.reshape(B, S, h * dv) @ p["wo"].reshape(h * dv, d), None
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if mrope_sections is not None and positions3 is None:
@@ -184,10 +199,10 @@ def attention_apply(
     if qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, norm_eps)
         k = rmsnorm_apply(p["k_norm"], k, norm_eps)
-    if mrope_sections is not None:
+    if use_rope and mrope_sections is not None:
         q = apply_mrope(q, positions3, theta, mrope_sections)
         k = apply_mrope(k, positions3, theta, mrope_sections)
-    else:
+    elif use_rope:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
 
@@ -270,6 +285,5 @@ def attention_apply(
     else:
         raise ValueError(mode)
 
-    h, dv, d = p["wo"].shape
     out = out.reshape(B, S, h * dv) @ p["wo"].reshape(h * dv, d)
     return out, new_cache

@@ -1,7 +1,9 @@
 """Block layer: a sequence mixer and an optional FFN, with pre-norms.
 
 Kinds (``config`` constants): ``ATTN_FULL`` (llama, qwen3 with its
-per-head q/k norm, qwen2-vl with M-RoPE, phi3.5-moe), ``ATTN_LOCAL``
+per-head q/k norm, qwen2-vl with M-RoPE, phi3.5-moe), ``ENC_ATTN``
+(bidirectional self-attention, as the JAX package's block has it; no
+shipped configuration stacks it), ``ATTN_LOCAL``
 (gemma3's and recurrentgemma's sliding-window layers, whose state is a
 ring cache of ``min(sliding_window, s_alloc)`` slots), ``MLSTM`` and
 ``SLSTM`` (xlstm) and ``RGLRU`` (recurrentgemma).  The FFN is a dense
@@ -12,9 +14,11 @@ gated MLP, a top-k MoE (``models.moe``), or absent when ``d_ff == 0``
 
 ``state_shape`` gives every state leaf with its dtype: attention caches
 ``{"k", "v"}`` at the storage dtype (``kv_dtype``), recurrent states in
-f32 whatever the model dtype, as in the JAX package.  Bidirectional
-encoder blocks, encoders and the audio frontend raise
-``NotImplementedError`` (``check_supported``).
+f32 whatever the model dtype, as in the JAX package.  ``block_apply``
+also returns the MoE auxiliary loss (zero without MoE); its ``train``
+mode carries no state.  The encoder-decoder (whisper-base, its encoder
+and audio frontend stub) runs through ``models.whisper.WhisperModel``,
+not through these blocks' ``LM``; ``check_supported`` says so.
 """
 from __future__ import annotations
 
@@ -22,28 +26,31 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..config import (ATTN_FULL, ATTN_LOCAL, MLSTM, RGLRU, SLSTM,
-                      ResolvedConfig)
+from ..config import (ATTN_FULL, ATTN_LOCAL, AUDIO, ENC_ATTN, MLSTM, RGLRU,
+                      SLSTM, ResolvedConfig)
 from . import ssm
 from .attention import attention_apply, init_attention
 from .layers import init_mlp, init_rmsnorm, mlp_apply, rmsnorm_apply
 from .moe import init_moe, moe_apply
 
-PORTED_KINDS = (ATTN_FULL, ATTN_LOCAL, MLSTM, SLSTM, RGLRU)
-ATTN_KINDS = (ATTN_FULL, ATTN_LOCAL)
+PORTED_KINDS = (ATTN_FULL, ATTN_LOCAL, ENC_ATTN, MLSTM, SLSTM, RGLRU)
+ATTN_KINDS = (ATTN_FULL, ATTN_LOCAL, ENC_ATTN)
 
 LeafShapes = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 
 
 def check_supported(rcfg: ResolvedConfig) -> None:
-    """Raise for configurations the port does not run yet."""
+    """Raise for a configuration the decoder-only ``LM`` cannot run: a
+    block kind the port lacks, or an encoder-decoder (audio) model, which
+    ``models.whisper.WhisperModel`` runs."""
     b = rcfg.base
     if any(k not in PORTED_KINDS for k in b.layer_kinds()):
         raise NotImplementedError(
             f"{b.name}: only {PORTED_KINDS} blocks are ported")
-    if b.encoder_layers or b.frontend_stub == "audio_frames":
-        raise NotImplementedError(
-            f"{b.name}: encoders and the audio frontend are not ported")
+    if b.family == AUDIO or b.encoder_layers \
+            or b.frontend_stub == "audio_frames":
+        raise ValueError(f"{b.name}: an encoder-decoder model; build "
+                         "models.whisper.WhisperModel")
 
 
 def _has_ffn(rcfg: ResolvedConfig) -> bool:
@@ -123,7 +130,7 @@ def block_apply(
     *,
     kind: str,
     rcfg: ResolvedConfig,
-    mode: str,                                 # prefill | extend | decode
+    mode: str,                         # train | prefill | extend | decode
     state: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
     q_offset: int = 0,
@@ -132,25 +139,28 @@ def block_apply(
     block_tables: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     positions3: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (y, new_state).  Attention caches are updated in place (the
-    returned state is the same dict); recurrent states come back as new
-    tensors.  A recurrent layer ignores ``kv_len``: it runs over the whole
-    chunk, bucket PAD included, as the JAX package's does."""
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Any]:
+    """Returns (y, new_state, MoE aux loss or 0.0).  Attention caches are
+    updated in place (the returned state is the same dict); recurrent
+    states come back as new tensors; ``train`` returns no state.  A
+    recurrent layer ignores ``kv_len``: it runs over the whole chunk,
+    bucket PAD included, as the JAX package's does."""
     b = rcfg.base
+    aux = 0.0                  # a tensor only where a MoE FFN computes it
     h = rmsnorm_apply(p["norm1"], x, b.norm_eps)
     if kind in ATTN_KINDS:
         window = b.sliding_window if kind == ATTN_LOCAL else None
         assert slots is None or kind == ATTN_FULL, \
             "paged serving (slots) supports full-attention blocks only"
-        attn_mode = {"prefill": "full", "extend": "extend",
+        attn_mode = {"train": "full", "prefill": "full", "extend": "extend",
                      "decode": "decode"}[mode]
         mix, new_state = attention_apply(
-            p["attn"], h, mode=attn_mode, causal=True, window=window,
-            positions=positions, positions3=positions3,
+            p["attn"], h, mode=attn_mode, causal=(kind != ENC_ATTN),
+            window=window, positions=positions, positions3=positions3,
             mrope_sections=b.mrope_sections, cache=state,
             cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
-            slots=slots, block_tables=block_tables, want_cache=True,
+            slots=slots, block_tables=block_tables,
+            want_cache=(mode != "train"),
             qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps)
     else:
         assert slots is None, \
@@ -168,13 +178,15 @@ def block_apply(
         else:
             raise ValueError(kind)
     x = x + mix
+    if mode == "train":
+        new_state = None
     if _has_ffn(rcfg):
         h2 = rmsnorm_apply(p["norm2"], x, b.norm_eps)
         if b.moe is not None:
-            y, _ = moe_apply(p["moe"], h2, top_k=b.moe.top_k,
-                             capacity_factor=b.moe.capacity_factor,
-                             strategy=b.moe.strategy, act=b.act)
+            y, aux = moe_apply(p["moe"], h2, top_k=b.moe.top_k,
+                               capacity_factor=b.moe.capacity_factor,
+                               strategy=b.moe.strategy, act=b.act)
         else:
             y = mlp_apply(p["mlp"], h2, b.act)
         x = x + y
-    return x, new_state
+    return x, new_state, aux

@@ -9,8 +9,16 @@ The port keeps one dict per layer in that order, with every leaf of the
 layer carried across (qwen3's ``q_norm``/``k_norm`` scales, MoE experts
 ``[E, ...]``, sLSTM's ``r [4, H, dh, dh]`` and the recurrent state leaves
 included).
+Whisper's JAX tree keeps its layers unstacked (``enc``/``dec`` tuples),
+so ``whisper_from_jax`` only turns the tuples into lists.
 Arrays arrive as numpy (``jax.tree.map(np.asarray, tree)`` on the
 caller's side), so this module imports nothing of JAX.
+
+``jax_ndims`` tells the optimizer how many dimensions each port leaf has
+in the JAX layout: the reference's AdamW decays exactly the leaves with
+``ndim >= 2`` there, which includes every norm scale of a stacked layer
+(``[R, d]``) and no norm scale of a tail layer or of ``final_norm``
+(``[d]``).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import ResolvedConfig
+from ..tree import tree_map
 from .runtime import DeviceLike
 
 
@@ -31,20 +40,12 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)    # owned copy
 
 
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
 def _unstack(stages, tail, n_rep: int) -> List[Any]:
     """Repetition-major list of per-layer subtrees."""
     layers = []
     for r in range(n_rep):
         for stage in stages:
-            layers.append(_map(stage, lambda a, r=r: np.asarray(a)[r]))
+            layers.append(tree_map(lambda a, r=r: np.asarray(a)[r], stage))
     layers.extend(tail)
     return layers
 
@@ -60,10 +61,37 @@ def from_jax_params(params_np: Dict[str, Any], rcfg: ResolvedConfig,
     layers = _unstack(params_np["stages"], params_np["tail"], _n_rep(rcfg))
     conv = lambda a: _tensor(a, device)              # noqa: E731
     return {
-        "embed": _map(params_np["embed"], conv),
-        "final_norm": _map(params_np["final_norm"], conv),
-        "layers": [_map(layer, conv) for layer in layers],
+        "embed": tree_map(conv, params_np["embed"]),
+        "final_norm": tree_map(conv, params_np["final_norm"]),
+        "layers": [tree_map(conv, layer) for layer in layers],
     }
+
+
+def jax_ndims(params: Dict[str, Any], rcfg: ResolvedConfig) -> Any:
+    """The tree of ``params`` with each leaf replaced by the ndim of its
+    counterpart in the JAX package's layout: a layer among the first
+    ``R * len(block_pattern)`` (stacked there on a leading ``R`` axis)
+    counts one more dimension than it has here.  Whisper stacks
+    nothing."""
+    out = tree_map(lambda t: t.dim(), params)
+    if not rcfg.base.encoder_layers:
+        stacked = _n_rep(rcfg) * len(rcfg.base.block_pattern)
+        for i in range(stacked):
+            out["layers"][i] = tree_map(lambda n: n + 1, out["layers"][i])
+    return out
+
+
+def whisper_from_jax(tree_np: Dict[str, Any], device: DeviceLike
+                     ) -> Dict[str, Any]:
+    """JAX ``WhisperModel`` params or serve states (numpy leaves) -> the
+    port's: the same dicts with lists for the per-layer tuples."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _tensor(t, device)
+    return conv(tree_np)
 
 
 def states_from_jax(states_np: Dict[str, Any], rcfg: ResolvedConfig,
@@ -71,4 +99,4 @@ def states_from_jax(states_np: Dict[str, Any], rcfg: ResolvedConfig,
     """JAX serve-state / arena pytree (numpy leaves) -> the port's
     per-layer KV caches, so arena contents compare like with like."""
     layers = _unstack(states_np["stages"], states_np["tail"], _n_rep(rcfg))
-    return [_map(layer, lambda a: _tensor(a, device)) for layer in layers]
+    return [tree_map(lambda a: _tensor(a, device), layer) for layer in layers]

@@ -1,5 +1,6 @@
-"""Primitive layers: RMS norm, rotary embeddings (M-RoPE included), SwiGLU
-MLP, embedding and the tied LM head.
+"""Primitive layers: RMS and layer norms, rotary embeddings (M-RoPE
+included), SwiGLU and plain GELU MLPs, sinusoidal positions, embedding and
+the tied LM head.
 
 Functional pairs ``init_*(gen, ...) -> params`` / ``*_apply(params, x)``
 over plain dicts of tensors, with the JAX package's parameter layouts so
@@ -41,6 +42,21 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """LayerNorm in f32 (population variance), cast back to ``x.dtype``."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +109,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs (SwiGLU; plain two-layer GELU for whisper)
 # ---------------------------------------------------------------------------
 
 # "gelu" is the tanh approximation, jax.nn.gelu's default
@@ -115,6 +131,34 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return h @ params["w2"]
 
 
+def init_mlp2(gen: torch.Generator, d: int, f: int, dtype) -> dict:
+    """Plain 2-layer MLP (whisper-style, no gating); biases in f32."""
+    return {
+        "w1": _dense_init(gen, (d, f), d, dtype),
+        "b1": torch.zeros((f,), dtype=torch.float32, device=gen.device),
+        "w2": _dense_init(gen, (f, d), f, dtype),
+        "b2": torch.zeros((d,), dtype=torch.float32, device=gen.device),
+    }
+
+
+def mlp2_apply(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """``act(x W1 + b1) W2 + b2``, the f32 biases cast to ``x.dtype``."""
+    h = ACTS[act](x @ params["w1"] + params["b1"].to(x.dtype))
+    return h @ params["w2"] + params["b2"].to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal encodings in f32: positions [...] -> [..., d] (sines,
+    then cosines; the JAX package's ``max(half - 1, 1)`` denominator)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / LM head
 # ---------------------------------------------------------------------------
@@ -129,13 +173,38 @@ def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
+class _HeadMatmul(torch.autograd.Function):
+    """``x2 @ table.T`` of two bf16 operands with an f32 result, on the
+    tensor cores (``torch.mm(..., out_dtype=float32)``, which has no
+    derivative of its own).  The backward rounds the f32 logit gradient
+    to the operands' dtype, then accumulates both products in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        g = g.to(table.dtype)
+        dx = dt = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, table, out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dt = torch.mm(g.t(), x2, out_dtype=torch.float32).to(
+                table.dtype)
+        return dx, dt
+
+
 def lm_head_apply(params, x: torch.Tensor,
                   softcap: Optional[float] = None) -> torch.Tensor:
     """Tied head: logits = x @ table.T with f32 ACCUMULATION and f32 out.
 
     On the card a bf16 table stays in its storage dtype (cuBLAS bf16
     product with an f32 result) instead of materializing an f32 copy of
-    the whole vocab table every step; on the CPU the product runs in f32.
+    the whole vocab table every step, in training too (``_HeadMatmul``);
+    on the CPU the product runs in f32.
     """
     table = params["table"]
     lead = x.shape[:-1]
@@ -143,7 +212,7 @@ def lm_head_apply(params, x: torch.Tensor,
     if x2.dtype == torch.float32 and table.dtype == torch.float32:
         logits = x2 @ table.t()
     elif x2.is_cuda:
-        logits = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        logits = _HeadMatmul.apply(x2, table)
     else:
         logits = x2.float() @ table.float().t()
     logits = logits.reshape(*lead, table.shape[0])

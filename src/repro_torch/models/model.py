@@ -17,8 +17,10 @@ frontend), prepended to the token embeddings, and ``positions3`` [B, S, 3]
 (t, h, w) for M-RoPE; text-only input and decode take t = h = w =
 position.
 
-Entry points, one per serving phase:
+Entry points, one per training or serving phase:
 
+    forward(params, batch)                     -> (logits [B, S, V], aux)
+    loss(params, batch)                        -> scalar (train)
     prefill(params, batch, s_alloc)            -> (last logits, states)
     extend(params, batch, states, q_offset)    -> (last logits, states)
     decode_step(params, tokens, states, pos)   -> (logits [B, V], states)
@@ -26,7 +28,10 @@ Entry points, one per serving phase:
 ``extend`` is the task-cascade primitive: document fraction f_j -> f_i reuse
 (the KV prefix for [0, q_offset) is already in ``states``).  ``extend`` and
 ``decode_step`` update attention caches IN PLACE; recurrent layers return
-new state tensors, so callers use the returned states.
+new state tensors, so callers use the returned states.  ``forward`` runs
+the blocks' ``train`` mode: no state, no cache, and attention through
+``ops.attention``'s differentiable route when the parameters require
+grad.
 
 ``LM(rcfg, device=...)`` runs on the CUDA device by default and raises
 when none is present; tests pass ``device="cpu"``.
@@ -44,6 +49,21 @@ from .layers import embed_apply, init_embed, init_rmsnorm, lm_head_apply, \
 from .runtime import DTYPES, DeviceLike, resolve_device
 
 States = List[Dict[str, torch.Tensor]]
+
+
+def token_xent(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    """Mean cross-entropy of ``batch["labels"]`` under ``logits`` [B, S, V]
+    (f32 log-softmax), weighted by ``batch["loss_mask"]`` when present.
+    Gathers ``logp[label]``, which equals the reference's one-hot product
+    exactly."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return -tok_ll.sum() / max(tok_ll.numel(), 1)
+    mask = mask.float()
+    return -(tok_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class LM:
@@ -160,16 +180,21 @@ class LM:
     def _run_layers(self, params, x, *, mode, states=None, cache_len=None,
                     q_offset=0, kv_len=None, slots=None, block_tables=None,
                     positions=None, positions3=None):
+        """-> (x, new states, summed MoE aux loss in ``train``, else
+        0.0)."""
         new_states = []
+        aux = 0.0
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
-            x, ns = blocks.block_apply(
+            x, ns, a = blocks.block_apply(
                 lp, x, kind=kind, rcfg=self.rcfg, mode=mode,
                 state=None if states is None else states[i],
                 cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
                 slots=slots, block_tables=block_tables, positions=positions,
                 positions3=positions3)
             new_states.append(ns)
-        return x, new_states
+            if mode == "train":       # serving passes discard the aux loss
+                aux = aux + a
+        return x, new_states, aux
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         b = self.rcfg.base
@@ -193,6 +218,28 @@ class LM:
         return x
 
     # ------------------------------------------------------------ entry pts
+    def forward(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training/eval forward -> (logits [B, S, V] f32, MoE aux)."""
+        x = self.embed_inputs(params, batch)
+        B, S, _ = x.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, _, aux = self._run_layers(params, x, mode="train",
+                                     positions=positions,
+                                     positions3=batch.get("positions3"))
+        b = self.rcfg.base
+        x = rmsnorm_apply(params["final_norm"], x, b.norm_eps)
+        return (lm_head_apply(params["embed"], x, b.logit_softcap),
+                torch.as_tensor(aux, dtype=torch.float32, device=x.device))
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy (+ 0.01 MoE aux); ``labels``
+        [B, S_total], optional ``loss_mask``."""
+        logits, aux = self.forward(params, batch)
+        return token_xent(logits, batch) + 0.01 * aux
+
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 s_alloc: Optional[int] = None):
         """Full prompt pass -> (last-token logits [B, V], states).
@@ -204,13 +251,13 @@ class LM:
         if s_alloc:
             # prefill writes into preallocated caches via extend at offset 0
             states = self.init_states(B, s_alloc)
-            x, new_states = self._run_layers(
+            x, new_states, _ = self._run_layers(
                 params, x, mode="extend", states=states, q_offset=0,
                 positions=positions, positions3=positions3,
                 cache_len=torch.zeros((B,), dtype=torch.int32,
                                       device=x.device))
         else:
-            x, new_states = self._run_layers(params, x, mode="prefill",
+            x, new_states, _ = self._run_layers(params, x, mode="prefill",
                                              positions=positions,
                                              positions3=positions3)
         return self._head(params, x[:, -1:]), new_states
@@ -232,7 +279,7 @@ class LM:
         B, S, _ = x.shape
         positions = q_offset + torch.arange(S, device=x.device)[None].expand(
             B, S)
-        x, new_states = self._run_layers(
+        x, new_states, _ = self._run_layers(
             params, x, mode="extend", states=states, q_offset=q_offset,
             kv_len=kv_len, slots=slots, block_tables=block_tables,
             positions=positions, positions3=batch.get("positions3"))
@@ -251,7 +298,7 @@ class LM:
         positions3 = None
         if self.rcfg.base.mrope_sections is not None:
             positions3 = pos[:, None, None].expand(pos.shape[0], 1, 3)
-        x, new_states = self._run_layers(
+        x, new_states, _ = self._run_layers(
             params, x, mode="decode", states=states, cache_len=pos,
             slots=slots, block_tables=block_tables, positions=pos[:, None],
             positions3=positions3)

@@ -1,0 +1,213 @@
+"""Whisper-base: encoder-decoder with cross-attention.
+
+The JAX package's ``WhisperModel``, in PyTorch.  The conv/mel frontend is
+a stub: batches carry precomputed frame embeddings ``frame_emb`` [B,
+S_enc, D], projected by ``frame_proj``.  6 bidirectional encoder layers;
+6 decoder layers of (causal self-attention, cross-attention over the
+encoder output, GELU MLP); LayerNorms; sinusoidal positions on both
+sides (no rotary embedding); tied LM head.
+
+Parameters are ``{"embed", "frame_proj", "enc": [layer], "enc_norm",
+"dec": [layer], "dec_norm"}``, the JAX layout with lists for its layer
+tuples.  Serving states are ``{"self": [{"k", "v"}], "cross": [{"k",
+"v"}]}`` per decoder layer: the self-attention caches (updated IN PLACE
+by ``decode_step``, as the LM's are) and the cross-attention K/V,
+computed once from the encoder output at prefill; decode steps never
+touch the encoder again.
+
+On the card: the encoder's bidirectional attention, the cross-attention
+(one query a sequence at decode, the prompt at prefill) and the decoder's
+prefill run the dense flash kernel; decode steps run the dense decode
+kernel over the self cache.  ``WhisperModel(rcfg, device=...)`` runs on
+the CUDA device by default and raises when none is present.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import ResolvedConfig
+from .attention import _proj, attention_apply, init_attention, init_kv_cache
+from .layers import (embed_apply, init_embed, init_layernorm, init_mlp2,
+                     layernorm_apply, lm_head_apply, mlp2_apply,
+                     sinusoidal_positions)
+from .model import token_xent
+from .runtime import DTYPES, DeviceLike, resolve_device
+
+
+class WhisperModel:
+    def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda"):
+        if not rcfg.base.encoder_layers:
+            raise ValueError(f"{rcfg.base.name}: no encoder layers")
+        self.rcfg = rcfg
+        self.device = resolve_device(device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return DTYPES[self.rcfg.base.dtype]
+
+    @property
+    def n_enc(self) -> int:
+        return self.rcfg.base.encoder_layers
+
+    @property
+    def n_dec(self) -> int:
+        return self.rcfg.base.num_layers
+
+    # ---------------------------------------------------------------- params
+    def _attn(self, gen, kv_heads: int) -> Dict[str, torch.Tensor]:
+        r = self.rcfg
+        return init_attention(gen, r.base.d_model, r.padded_heads, kv_heads,
+                              r.head_dim, self.dtype)
+
+    def init(self, seed: int) -> Dict[str, Any]:
+        """Random parameters from ``torch.Generator(seed)`` on the
+        model's device."""
+        r, b, dev = self.rcfg, self.rcfg.base, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = b.d_model
+        enc = [{"norm1": init_layernorm(d, dev),
+                "attn": self._attn(gen, r.padded_kv_heads),
+                "norm2": init_layernorm(d, dev),
+                "mlp": init_mlp2(gen, d, b.d_ff, self.dtype)}
+               for _ in range(self.n_enc)]
+        dec = [{"norm1": init_layernorm(d, dev),
+                "self_attn": self._attn(gen, r.padded_kv_heads),
+                "norm2": init_layernorm(d, dev),
+                "cross_attn": self._attn(gen, r.padded_heads),
+                "norm3": init_layernorm(d, dev),
+                "mlp": init_mlp2(gen, d, b.d_ff, self.dtype)}
+               for _ in range(self.n_dec)]
+        frame_proj = torch.randn((d, d), generator=gen, device=dev,
+                                 dtype=torch.float32) * 0.02
+        return {
+            "embed": init_embed(gen, r.padded_vocab, d, self.dtype),
+            "frame_proj": frame_proj.to(self.dtype),
+            "enc": enc,
+            "enc_norm": init_layernorm(d, dev),
+            "dec": dec,
+            "dec_norm": init_layernorm(d, dev),
+        }
+
+    # ---------------------------------------------------------------- states
+    def state_shapes(self, batch: int, s_alloc: int
+                     ) -> Dict[str, List[Dict[str, Tuple[Tuple[int, ...],
+                                                          torch.dtype]]]]:
+        """(shape, dtype) of every state leaf, allocating nothing."""
+        r = self.rcfg
+        self_kv = (batch, s_alloc, r.padded_kv_heads, r.head_dim)
+        cross = (batch, r.base.encoder_seq_len, r.padded_heads, r.head_dim)
+        leaf = lambda shape: {"k": (shape, self.dtype),      # noqa: E731
+                              "v": (shape, self.dtype)}
+        return {"self": [leaf(self_kv) for _ in range(self.n_dec)],
+                "cross": [leaf(cross) for _ in range(self.n_dec)]}
+
+    # ------------------------------------------------------------------ core
+    def _positions(self, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+        return x + sinusoidal_positions(positions, x.shape[-1]).to(x.dtype)
+
+    def encode(self, params, frame_emb: torch.Tensor) -> torch.Tensor:
+        """frame_emb [B, S_enc, D] (stub frontend output) -> encoder
+        states [B, S_enc, D]."""
+        S = frame_emb.shape[1]
+        x = frame_emb.to(self.dtype) @ params["frame_proj"]
+        x = self._positions(x, torch.arange(S, device=x.device)[None])
+        for lp in params["enc"]:
+            h = layernorm_apply(lp["norm1"], x)
+            mix, _ = attention_apply(lp["attn"], h, mode="full",
+                                     causal=False, use_rope=False)
+            x = x + mix
+            x = x + mlp2_apply(lp["mlp"], layernorm_apply(lp["norm2"], x),
+                               "gelu")
+        return layernorm_apply(params["enc_norm"], x)
+
+    def _cross_kv(self, params, enc_out: torch.Tensor
+                  ) -> List[Dict[str, torch.Tensor]]:
+        """Cross-attention K/V of every decoder layer [B, S_enc, H, Dh]."""
+        return [{"k": _proj(enc_out, lp["cross_attn"]["wk"]),
+                 "v": _proj(enc_out, lp["cross_attn"]["wv"])}
+                for lp in params["dec"]]
+
+    def _dec_layer(self, lp, x, *, mode, self_cache, cross_kv, positions,
+                   cache_len):
+        h = layernorm_apply(lp["norm1"], x)
+        mix, new_cache = attention_apply(
+            lp["self_attn"], h, mode=mode, causal=True, positions=positions,
+            cache=self_cache, cache_len=cache_len,
+            want_cache=(mode != "full"), use_rope=False)
+        x = x + mix
+        mix, _ = attention_apply(lp["cross_attn"],
+                                 layernorm_apply(lp["norm2"], x),
+                                 kv_ctx=(cross_kv["k"], cross_kv["v"]))
+        x = x + mix
+        x = x + mlp2_apply(lp["mlp"], layernorm_apply(lp["norm3"], x),
+                           "gelu")
+        return x, new_cache
+
+    def _embed(self, params, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        x = embed_apply(params["embed"], tokens).to(self.dtype)
+        return self._positions(x, positions)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        return lm_head_apply(params["embed"],
+                             layernorm_apply(params["dec_norm"], x))
+
+    # ------------------------------------------------------------ entry pts
+    def forward(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward -> (logits [B, S, V] f32, aux = 0)."""
+        cross = self._cross_kv(params, self.encode(params,
+                                                   batch["frame_emb"]))
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = self._embed(params, tokens, positions)
+        for lp, ckv in zip(params["dec"], cross):
+            x, _ = self._dec_layer(lp, x, mode="full", self_cache=None,
+                                   cross_kv=ckv, positions=positions,
+                                   cache_len=None)
+        return (self._logits(params, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``labels`` (no aux term)."""
+        logits, _ = self.forward(params, batch)
+        return token_xent(logits, batch)
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor], *,
+                s_alloc: Optional[int] = None):
+        """Encode, then teacher-force the prompt into self caches of
+        ``s_alloc`` positions -> (last-token logits [B, V], states)."""
+        cross = self._cross_kv(params, self.encode(params,
+                                                   batch["frame_emb"]))
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = self._embed(params, tokens, positions)
+        zero = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+        new_self = []
+        for lp, ckv in zip(params["dec"], cross):
+            cache = init_kv_cache(B, s_alloc or S, self.rcfg.padded_kv_heads,
+                                  self.rcfg.head_dim, self.dtype,
+                                  tokens.device)
+            x, nc = self._dec_layer(lp, x, mode="extend", self_cache=cache,
+                                    cross_kv=ckv, positions=positions,
+                                    cache_len=zero)
+            new_self.append(nc)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        return logits, {"self": new_self, "cross": cross}
+
+    def decode_step(self, params, tokens: torch.Tensor, states,
+                    pos: torch.Tensor):
+        """tokens [B], pos [B] -> (logits [B, V], states); the self caches
+        take the token's K/V at ``pos`` in place."""
+        x = self._embed(params, tokens[:, None], pos[:, None])
+        for lp, sc, ckv in zip(params["dec"], states["self"],
+                               states["cross"]):
+            x, _ = self._dec_layer(lp, x, mode="decode", self_cache=sc,
+                                   cross_kv=ckv, positions=pos[:, None],
+                                   cache_len=pos)
+        return self._logits(params, x)[:, 0], states

@@ -1,0 +1,150 @@
+"""Training step and the checkpointed driver.
+
+``make_train_step`` builds the step for any model of the port (``LM`` or
+``WhisperModel``): loss and gradients over the batch, with microbatch
+accumulation in f32 when ``accum_steps > 1`` (the reference's
+``lax.scan`` body, as a loop), then the in-place AdamW update.  Batches
+may hold numpy arrays (the data pipeline's) or tensors; they are moved to
+the model's device.
+
+``compress_pod_grads`` (int8 cross-pod gradient reduction) needs a
+device mesh; without one it changes nothing, as in the JAX package with
+``mesh=None``.  The port has no mesh yet.
+
+``TrainDriver`` is the fault-tolerant loop: periodic async checkpoints,
+restart from the latest, and a heartbeat hook.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..models.convert import jax_ndims
+from ..tree import leaves, tree_map
+from .optimizer import OptimizerConfig, adamw_update
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    accum_steps: int = 1
+    compress_pod_grads: bool = False
+    opt: OptimizerConfig = OptimizerConfig()
+
+
+def batch_to_device(batch: Dict[str, Any], device
+                    ) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
+    """[B, ...] per leaf -> n batches of [B / n, ...]."""
+    parts = {k: v.chunk(n) for k, v in batch.items()}
+    return [{k: parts[k][i] for k in batch} for i in range(n)]
+
+
+def make_loss_fn(model) -> Callable:
+    def loss_fn(params, batch):
+        return model.loss(params, batch)
+    return loss_fn
+
+
+def make_train_step(model, mesh: Optional[Any] = None,
+                    tc: TrainConfig = TrainConfig()) -> Callable:
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``params`` and the moments are updated in place.
+    ``mesh`` must be None: the port has no device mesh yet."""
+    if mesh is not None:
+        raise NotImplementedError("the port has no device mesh yet")
+    loss_fn = make_loss_fn(model)
+    ndims = None
+
+    def value_and_grad(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, batch)
+        grads = iter(torch.autograd.grad(loss, leaves(live)))
+        return loss.detach(), tree_map(lambda _: next(grads), params)
+
+    def grads_of(params, batch):
+        if tc.accum_steps <= 1:
+            return value_and_grad(params, batch)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        for mb in _split_microbatches(batch, tc.accum_steps):
+            loss, grads = value_and_grad(params, mb)
+            loss_sum += loss
+            tree_map(lambda a, g: a.add_(g), acc, grads)
+        inv = 1.0 / tc.accum_steps
+        return loss_sum * inv, tree_map(lambda g: g * inv, acc)
+
+    def step(params, opt_state, batch):
+        nonlocal ndims
+        if ndims is None:
+            ndims = jax_ndims(params, model.rcfg)
+        loss, grads = grads_of(params, batch_to_device(batch, model.device))
+        params, opt_state, metrics = adamw_update(tc.opt, params, grads,
+                                                  opt_state, ndims)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant driver
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainDriver:
+    """Checkpointed training loop with restart and heartbeat hooks."""
+
+    step_fn: Callable
+    checkpointer: Any = None            # checkpoint.Checkpointer
+    ckpt_every: int = 100
+    monitor: Any = None                 # has beat(name, step)
+    log_every: int = 10
+    log_fn: Callable[[str], None] = print
+
+    def run(self, params, opt_state, data_iter, n_steps: int,
+            start_step: int = 0):
+        """Runs steps ``[start_step, n_steps)``; resumable via (params,
+        opt_state, start_step).  Returns (params, opt_state, [(step,
+        loss)] at every ``log_every``-th step)."""
+        history = []
+        t0 = time.time()
+        for step in range(start_step, n_steps):
+            batch = next(data_iter)
+            if self.monitor is not None:
+                self.monitor.beat("train", step)
+            params, opt_state, metrics = self.step_fn(
+                params, opt_state, batch)
+            if step % self.log_every == 0:
+                loss = float(metrics["loss"])
+                history.append((step, loss))
+                self.log_fn(f"step {step} loss {loss:.4f} "
+                            f"({time.time() - t0:.1f}s)")
+            if self.checkpointer is not None and step > 0 \
+                    and step % self.ckpt_every == 0:
+                self.checkpointer.save(
+                    step, {"params": params, "opt": opt_state})
+        if self.checkpointer is not None:
+            self.checkpointer.save(n_steps, {"params": params,
+                                             "opt": opt_state})
+            self.checkpointer.wait()
+        return params, opt_state, history
+
+    def restore_latest(self, params_like, opt_like):
+        """(params, opt_state, step) from the newest checkpoint, or
+        None."""
+        if self.checkpointer is None:
+            return None
+        latest = self.checkpointer.latest_step()
+        if latest is None:
+            return None
+        tree = self.checkpointer.restore(
+            latest, {"params": params_like, "opt": opt_like})
+        return tree["params"], tree["opt"], latest

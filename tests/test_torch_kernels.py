@@ -899,3 +899,45 @@ def test_cuda_decode_f32_cache_head_dim_256_raises(cuda):
         tdec.decode_attention(q, k, k, kl)
     with pytest.raises(ValueError, match="head_dim 256"):
         tops.decode_attention(q, k, k, kl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,window,q_off,kv_len", [
+    (2, 128, 128, 8, 2, 64, True, None, 0, [128, 77]),
+    (2, 96, 96, 4, 4, 64, False, None, 0, None),
+    (3, 1, 200, 4, 4, 64, False, None, 0, [200, 3, 150]),
+    (1, 64, 256, 4, 2, 128, True, 48, 192, None),
+])
+def test_cuda_flash_attention_fn_grads_match_plain(cuda, dtype, B, Sq, Skv,
+                                                   Hq, Hkv, Dh, causal,
+                                                   window, q_off, kv_len):
+    """``FlashAttentionFn`` on the card (the kernel's forward, PyTorch
+    backward) against autograd through the plain version: f32 to 1e-4
+    (the FMA body sums in another order), bf16 within 2**-6 of each
+    gradient's peak (the backward reads the kernel's bf16 output, see
+    ``chip_smoke.GRAD_REL_TOL``); two calls bitwise equal; the forward
+    counted as a ``flash_attention`` launch."""
+    q, k, v = (_t(a, dtype).to(cuda) for a in _qkv(91, B, Sq, Skv, Hq, Hkv,
+                                                   Dh))
+    dout = _t(_normal(94, (B, Sq, Hq, Dh)), dtype).to(cuda)
+    kl = None if kv_len is None else _i(kv_len).to(cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_off, kv_len=kl)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, **kw), leaves, dout)
+
+    before = tfla.LAUNCHES["flash_attention"]
+    got = grads(tops.attention)
+    assert tfla.LAUNCHES["flash_attention"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(tops.attention)))
+    ref = grads(tfla.flash_attention_plain)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            peak = float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= \
+                2 ** -6 * peak

@@ -238,25 +238,37 @@ def test_lm_init_is_seeded():
 
 
 def test_unported_configs_raise():
-    """What the port does not run yet raises: bidirectional encoder
-    blocks, encoder layers, the audio frontend, and cross-attention
-    (``kv_ctx``)."""
+    """The decoder-only LM refuses what it does not run: encoder layers
+    and the audio frontend belong to ``models.whisper.WhisperModel``
+    (held to JAX in tests/test_torch_whisper.py), and the LM says so.
+    Bidirectional ``ENC_ATTN`` blocks and ``kv_ctx`` cross-attention,
+    which raised before whisper was ported, now run: an ``ENC_ATTN``
+    layer's first position sees the last token, and cross-attention
+    returns the block's output and no cache."""
     import dataclasses
     from repro_torch.config import ENC_ATTN
     from repro_torch.models.attention import attention_apply
     cfg = t_get_reduced("llama3_2_1b", dtype="float32", vocab_size=512,
                         num_layers=2)
-    for bad in (dict(block_pattern=(ENC_ATTN,)),
-                dict(encoder_layers=2, encoder_seq_len=64),
+    for bad in (dict(encoder_layers=2, encoder_seq_len=64),
                 dict(frontend_stub="audio_frames", frontend_len=8)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="WhisperModel"):
             TLM(t_resolve(dataclasses.replace(cfg, **bad), tp=1),
                 device="cpu")
+    enc = TLM(t_resolve(dataclasses.replace(cfg, block_pattern=(ENC_ATTN,)),
+                        tp=1), device="cpu")
+    ep = enc.init(seed=0)
+    toks = torch.from_numpy(_tok(9, (1, 8)))
+    first = enc.forward(ep, {"tokens": toks})[0][:, 0]
+    toks2 = toks.clone()
+    toks2[0, -1] = (toks2[0, -1] + 1) % 512
+    assert not torch.equal(first, enc.forward(ep, {"tokens": toks2})[0][:, 0])
     tm = TLM(_rcfg(), device="cpu")
     p = tm.init(seed=0)["layers"][0]["attn"]
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        attention_apply(p, x, kv_ctx=(x, x))
+    x = torch.randn((1, 4, cfg.d_model))
+    kv = torch.randn((1, 6, tm.rcfg.padded_kv_heads, tm.rcfg.head_dim))
+    out, cache = attention_apply(p, x, kv_ctx=(kv, kv))
+    assert out.shape == x.shape and cache is None
 
 
 def _qwen_rcfg():

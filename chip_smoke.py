@@ -147,6 +147,31 @@ non-zero without printing a result:
             step wall and peak memory printed; a ``Checkpointer``
             checkpoint restored bitwise, 2 resumed steps held against 2
             straight ones within twice the spread of two resumed runs.
+            ``distributed``: (a) ``decode_attention_lse`` over four
+            32768-key shards of a bf16 cache of 131072 keys at
+            llama3.2-1b's heads, merged by the rule of
+            ``sp_decode_attention`` and held within ``DECODE_TOL`` of the
+            decode kernel over the whole cache and of the plain version
+            at kv_len 0, 1, 32767, 32768, 32769, 98304, 131072; one
+            shard's (acc, l, m) against ``decode_attention_lse_plain``;
+            two calls bitwise; per-shard kernel, plain, SDPA and bound
+            times.  (b) ``distributed: world <n>``, one NCCL rank per
+            visible card (spawned, TCP rendezvous on 127.0.0.1, timeouts
+            on the join and the collectives) on an (n, 1) ``data`` x
+            ``model`` mesh; at n = 1 the checks that need two ranks are
+            named as not run; at n >= 2 they run (``_dist_multi``: the
+            rings bitwise against their hops simulated, the MoE's ep/tp
+            against ``tp_dense``, from n = 4 the int8 pod hop within
+            amax / 127).  Each rank: ``sp_decode_attention`` over
+            its slice of (a)'s cache against (a)'s merged output;
+            ``compressed_psum`` of a tensor of llama3.2-1b's parameter
+            count (error <= amax / 127); 3 data-parallel steps of
+            full-width llama3.2-1b at batch 2 x 2048 a rank (at n = 1
+            bitwise equal to the mesh-less step; step wall and the
+            gradient all-reduce's share); a ``sp_decode=True`` LM
+            (prefill 8192, 32 decode steps) against the mesh-less LM
+            within ``FAMILY_LOGIT_TOL``, ``decode_attention_lse``
+            launches counted.
             ``models [whisper-base]``: full width and depth (6 + 6
             layers, 1536 frames, vocab 51865), bf16: encode, prefill 64
             tokens into caches of 128, 32 decode steps; the logits against
@@ -157,7 +182,8 @@ non-zero without printing a result:
 7. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
    the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
    (inflight 1), the families' model checks, moe-oracle and recurrent
-   serving (inflight 1), build, llama3.2-1b training and whisper's model
+   serving (inflight 1), build, llama3.2-1b training, the distributed
+   phase's data-parallel steps and sp-decode LM, and whisper's model
    check and training runs, each counted from zero;
    ``relevance_score`` also carries ``stream_ms``), then the result line
    ``{"ok": true, "device": {...}}``.
@@ -2524,6 +2550,495 @@ def whisper_phase():
     return counts, train_counts
 
 
+# ---------------------------------------------------------------------------
+# distributed: the LSE kernel over seq shards, and the NCCL world
+# ---------------------------------------------------------------------------
+
+DIST_SEED = 11
+DIST_HEADS = (32, 8, 64)           # llama3.2-1b's query / KV heads, head_dim
+DIST_S = 131072                    # keys of the bf16 cache (268 MB of K/V)
+DIST_SHARDS = 4
+DIST_LENS = (0, 1, 32767, 32768, 32769, 98304, 131072)
+DIST_TRAIN_STEPS = 3
+DIST_PREFILL = 8192
+DIST_DECODE = 32
+DIST_TIMEOUT_S = 600.0
+
+
+def _dist_cache(dev):
+    """(q, k, v) of the distributed phase, the same on every device."""
+    Hq, Hkv, Dh = DIST_HEADS
+    g = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    rand = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                  device=dev).to(torch.bfloat16)
+    return rand(1, Hq, Dh), rand(1, DIST_S, Hkv, Dh), rand(1, DIST_S, Hkv, Dh)
+
+
+def lse_shards_phase(dev, timer):
+    """``distributed [lse]``: ``decode_attention_lse`` over each of four
+    seq shards of a 131072-key bf16 cache at llama3.2-1b's heads, merged
+    by ``collectives.merge_lse`` (the rule ``sp_decode_attention`` applies
+    after its all-reduces), against the decode kernel over the whole
+    cache and the plain version within ``DECODE_TOL`` at every
+    ``DIST_LENS``; one shard's LSE triple against
+    ``decode_attention_lse_plain``; two calls bitwise; per-shard times
+    beside the bound and SDPA.  Returns (the kernels row, {kv_len: merged
+    output on the host})."""
+    from repro_torch.distributed.collectives import merge_lse
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, Dh = DIST_HEADS
+    q, k, v = _dist_cache(dev)
+    s = DIST_S // DIST_SHARDS
+    shard = lambda t, i: t[:, i * s:(i + 1) * s]  # noqa: E731
+
+    def sharded(kl):
+        return [ops.decode_attention_lse(
+            q, shard(k, i), shard(v, i), torch.clamp(kl - i * s, 0, s))
+            for i in range(DIST_SHARDS)]
+
+    merged, err_whole, err_plain = {}, 0.0, 0.0
+    for n in DIST_LENS:
+        kl = torch.tensor([n], dtype=torch.int32, device=dev)
+        parts = sharded(kl)
+        out = merge_lse(parts, q.dtype)
+        again = sharded(kl)
+        assert all(torch.equal(a, b) for a, b in zip(parts, again)), \
+            "decode_attention_lse: two calls differ"
+        assert torch.equal(merge_lse(again, q.dtype), out)
+        whole = ops.decode_attention(q, k, v, kl)
+        plain = dec.decode_attention_plain(q, k, v, kl)
+        torch.testing.assert_close(out.float(), whole.float(), **DECODE_TOL)
+        torch.testing.assert_close(out.float(), plain.float(), **DECODE_TOL)
+        err_whole = max(err_whole, max_err(out, whole))
+        err_plain = max(err_plain, max_err(out, plain))
+        merged[n] = out.cpu()
+    print(f"distributed [lse, llama3.2-1b shapes, {DIST_S} keys in "
+          f"{DIST_SHARDS} shards of {s}]: merged output at kv_len "
+          f"{list(DIST_LENS)} within tol of the decode kernel over the whole "
+          f"cache (max_abs_err {err_whole:.3g}) and of the plain version "
+          f"({err_plain:.3g}; tol atol={DECODE_TOL['atol']:g} "
+          f"rtol={DECODE_TOL['rtol']:g}); two calls bitwise equal")
+    # one shard's triple against the plain version: m exact where no key
+    # is seen, l and acc relative to l (acc / l mixes values of size ~1)
+    kl = torch.tensor([3 * s // 2], dtype=torch.int32, device=dev)
+    got = ops.decode_attention_lse(q, shard(k, 1), shard(v, 1), kl - s)
+    want = dec.decode_attention_lse_plain(q, shard(k, 1), shard(v, 1), kl - s)
+    l = want[..., -2]
+    m_err = max_err(got[..., -1], want[..., -1])
+    l_err = float(((got[..., -2] - l).abs() / l).max())
+    a_err = float(((got[..., :Dh] - want[..., :Dh]).abs() / l[..., None])
+                  .max())
+    print(f"distributed [lse]: shard 1 at local kv_len {s // 2}: |m - plain| "
+          f"{m_err:.3g}, |l - plain| / l {l_err:.3g}, |acc - plain| / l "
+          f"{a_err:.3g} (bound 1e-5 each)")
+    assert max(m_err, l_err, a_err) <= 1e-5, (m_err, l_err, a_err)
+    empty = ops.decode_attention_lse(q, shard(k, 2), shard(v, 2),
+                                     torch.zeros_like(kl))
+    assert torch.isneginf(empty[..., -1]).all() and \
+        not empty[..., :-1].any(), "a shard with no key: m -inf, l acc 0"
+
+    full = torch.tensor([s], dtype=torch.int32, device=dev)
+    k0, v0 = shard(k, 0), shard(v, 0)
+    keys = float(s)
+    nbytes = keys * Hkv * Dh * 2 * 2 + q.numel() * 2 + Hq * (Dh + 2) * 4 + 4
+    b_ms, b_by = bound(nbytes, 4.0 * Hq * Dh * keys)
+    row = dict(
+        name="decode_attention_lse", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:107",
+        max_abs_err=err_plain,
+        ms=timer.ms(lambda: ops.decode_attention_lse(q, k0, v0, full)),
+        plain_ms=timer.ms(lambda: dec.decode_attention_lse_plain(
+            q, k0, v0, full)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k0.transpose(1, 2), v0.transpose(1, 2),
+            enable_gqa=True)))
+    print(f"kernel decode_attention_lse [llama3.2-1b shapes, one shard of "
+          f"{s} keys]: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the whole cache's "
+          f"bound {row['bound_ms'] * DIST_SHARDS:.4f} ms")
+    # the same body in its normal mode, over the shard and the whole cache
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    whole = torch.tensor([DIST_S], dtype=torch.int32, device=dev)
+    n_ms = timer.ms(lambda: ops.decode_attention(q, k0, v0, full))
+    w_ms = timer.ms(lambda: ops.decode_attention(q, k, v, whole))
+    w_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, enable_gqa=True))
+    print(f"kernel decode_attention [B=1, llama3.2-1b shapes]: over the "
+          f"shard {n_ms:.4f} ms; over all {DIST_S} keys {w_ms:.4f} ms, sdpa "
+          f"{w_sdpa:.4f} ms")
+    return row, merged
+
+
+def _dist_train(model, mesh, dev, world):
+    """Mesh-less steps, then the same steps data-parallel from the same
+    init: the losses and params compared, the step walls and the share
+    of the gradient reduction (CUDA events around ``dp_reduce_grads``)."""
+    from repro_torch.data.pipeline import SyntheticLMTask
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.tree import leaves
+
+    tc = train_loop.TrainConfig(opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=1, total_steps=DIST_TRAIN_STEPS))
+    task = SyntheticLMTask(vocab_size=model.rcfg.base.vocab_size,
+                           seq_len=TRAIN_SEQ)
+    batches = [task.batch(0, 0, i, TRAIN_BATCH * world)
+               for i in range(DIST_TRAIN_STEPS)]
+
+    def run(step_mesh):
+        params = model.init(seed=3)
+        opt = init_opt_state(params)
+        step = train_loop.make_train_step(model, step_mesh, tc)
+        losses, walls = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        del opt
+        return params, losses, walls
+
+    ref = None
+    if world == 1:
+        ref = run(None)
+    spans, orig = [], train_loop.dp_reduce_grads
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(*a, **kw)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    train_loop.dp_reduce_grads = timed
+    try:
+        _zero_counts()
+        params, losses, walls = run(mesh)
+        counts = _counts()
+    finally:
+        train_loop.dp_reduce_grads = orig
+    torch.cuda.synchronize()
+    red_ms = [a.elapsed_time(b) for a, b in spans]
+    n_params = sum(t.numel() for t in leaves(params))
+    res = dict(losses=losses, wall_ms=[w * 1e3 for w in walls],
+               reduce_ms=red_ms, n_params=n_params, counts=counts)
+    if world > 1:
+        # every rank must hold rank 0's parameters bit for bit
+        import torch.distributed as dist
+        same = True
+        for t in leaves(params):
+            rank0 = t.clone()
+            dist.broadcast(rank0, src=0)
+            same &= torch.equal(rank0, t)
+        res["replicated"] = same
+    if ref is not None:
+        res["bitwise"] = ref[1] == losses and all(
+            torch.equal(a, b) for a, b in zip(leaves(ref[0]),
+                                              leaves(params)))
+        res["ref_losses"] = ref[1]
+    return res
+
+
+def _dist_multi(rank, world, dev, mesh):
+    """The checks that need two ranks or more, on the cards: the rings
+    (bitwise against the same sums computed locally in the reference's
+    order), ``matmul_ag_overlap``, the MoE's ``ep_a2a`` over ``data`` and
+    ``tp_smap`` over a (1, world) mesh against ``tp_dense`` at capacity 8
+    (nothing dropped), and from 4 ranks the int8 pod hop on a (2, world
+    / 2, 1) mesh within amax / 127 of the full-precision one."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import (matmul_ag_overlap,
+                                                     ring_all_gather,
+                                                     ring_reduce_scatter)
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.train.train_loop import dp_reduce_grads
+
+    def per_rank(r, *shape):
+        g = torch.Generator(device=dev).manual_seed(DIST_SEED + 100 + r)
+        return torch.randn(shape, generator=g, device=dev)
+
+    res = {}
+    xs = [per_rank(r, 64, 256) for r in range(world)]
+    res["all_gather"] = torch.equal(
+        ring_all_gather(xs[rank], mesh, "data", axis=0), torch.cat(xs))
+    n = 64 // world * world
+    ys = [x[:n] for x in xs]
+    # every rank's partial through the reference's hops and adds, locally
+    # (for world > 2 the result is not a true reduce-scatter: a fault of
+    # the reference kept for parity, ROADMAP Queue 3)
+    chunk = n // world
+    part = lambda y, j: y[(j % world) * chunk:(j % world + 1) * chunk]  # noqa: E731
+    accs = [part(ys[r], r + 1) for r in range(world)]
+    for step in range(1, world):
+        accs = [accs[(r - 1) % world] + part(ys[r], r + 1 + step)
+                for r in range(world)]
+    res["reduce_scatter"] = torch.equal(
+        ring_reduce_scatter(ys[rank], mesh, "data", axis=0), accs[rank])
+    x3 = [per_rank(r, 2, 128, 256) for r in range(world)]
+    w = per_rank(world, 256, 512)
+    res["matmul_ag_err"] = max_err(matmul_ag_overlap(x3[rank], w, mesh, "data"),
+                                   torch.cat(x3, dim=1) @ w)
+    assert res["all_gather"] and res["reduce_scatter"], res
+    assert res["matmul_ag_err"] <= 1e-3, res
+    # the MoE strategies, f32 (d 256, f 512, 16 experts, top-2)
+    E = 16
+    params = {"router": per_rank(world + 1, 256, E) / 16,
+              "w1": per_rank(world + 2, E, 256, 512) / 16,
+              "w3": per_rank(world + 3, E, 256, 512) / 16,
+              "w2": per_rank(world + 4, E, 512, 256) / 23}
+    kw = dict(top_k=2, capacity_factor=8.0)
+    # ep: each data rank routes its own rows
+    x = 0.5 * per_rank(world + 5 + rank, 2, 64, 256)
+    dense, aux_d = moe.moe_apply_tp_dense(params, x, **kw)
+    ep, aux_e = moe.moe_apply_ep_a2a(params, x, mesh=mesh, **kw)
+    # tp: the model ranks share their rows and split d_ff
+    x = 0.5 * per_rank(world + 5, 2, 64, 256)
+    dense_t, aux_dt = moe.moe_apply_tp_dense(params, x, **kw)
+    tp_mesh = make_mesh((1, world), ("data", "model"), "cuda")
+    tp, aux_t = moe.moe_apply_tp_smap(params, x, mesh=tp_mesh, **kw)
+    res["ep_err"] = max_err(ep, dense)
+    res["tp_err"] = max_err(tp, dense_t)
+    res["aux_err"] = max(abs(float(aux_e - aux_d)),
+                         abs(float(aux_t - aux_dt)))
+    assert max(res["ep_err"], res["tp_err"], res["aux_err"]) <= 1e-4, res
+    # the pod hop
+    if world >= 4 and world % 2 == 0:
+        pod = make_mesh((2, world // 2, 1), ("pod", "data", "model"), "cuda")
+        grads = {"a": per_rank(rank, 1 << 20), "b": per_rank(rank, 4096, 64)}
+        full = dp_reduce_grads(dict(grads), pod, False)
+        comp = dp_reduce_grads(dict(grads), pod, True)
+        ratio = 0.0
+        for k in grads:
+            amax = grads[k].abs().max().reshape(1)
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            ratio = max(ratio, max_err(full[k], comp[k]) / float(amax))
+        res["pod_ratio"] = ratio
+        assert ratio <= 1 / 127, res
+    return res
+
+
+def _dist_rank(rank, world, out_dir, merged_path):
+    """One rank of ``distributed [world]`` on its card (NCCL)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     sp_decode_attention)
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((world, 1), ("data", "model"), "cuda")
+    res = {}
+    # (1) sequence-parallel decode over (a)'s cache, a shard a rank
+    merged = torch.load(merged_path)
+    q, k, v = _dist_cache(dev)
+    s = DIST_S // world
+    kl_, vl_ = k[:, rank * s:(rank + 1) * s], v[:, rank * s:(rank + 1) * s]
+    scale = DIST_HEADS[2] ** -0.5
+    same_a, same_whole, err_a = True, True, 0.0
+    for n in DIST_LENS:
+        kl = torch.tensor([n], dtype=torch.int32, device=dev)
+        out = sp_decode_attention(q, kl_, vl_, kl, mesh, scale)
+        ref = merged[n].to(dev)
+        torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL)
+        same_a &= torch.equal(out, ref)
+        err_a = max(err_a, max_err(out, ref))
+        same_whole &= torch.equal(out, ops.decode_attention(q, k, v, kl,
+                                                            sm_scale=scale))
+    kl = torch.tensor([DIST_S], dtype=torch.int32, device=dev)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    sp_decode_attention(q, kl_, vl_, kl, mesh, scale)
+    e0.record()
+    for _ in range(20):
+        sp_decode_attention(q, kl_, vl_, kl, mesh, scale)
+    e1.record()
+    torch.cuda.synchronize()
+    res["sp"] = dict(bitwise_a=same_a, bitwise_whole=same_whole, err_a=err_a,
+                     ms=e0.elapsed_time(e1) / 20)
+    del q, k, v, kl_, vl_
+    if world >= 2:
+        res["multi"] = _dist_multi(rank, world, dev, mesh)
+    # (2) data-parallel training of full-width llama3.2-1b
+    model = LM(resolve(get_config("llama3_2_1b"), tp=1), device=dev)
+    res["train"] = _dist_train(model, mesh, dev, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (3) compressed_psum of a tensor of the model's parameter count
+    n_el = res["train"]["n_params"]
+    g = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    x = torch.randn((n_el,), generator=g, device=dev)
+    compressed_psum(x[:1 << 20], mesh, "data")          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, err = compressed_psum(x, mesh, "data")
+    torch.cuda.synchronize()
+    cp_ms = (time.perf_counter() - t0) * 1e3
+    amax = float(x.abs().max())
+    q_err = float((red - x).abs().max())
+    # the error feedback is this rank's residual x - dequantized(x): half
+    # a quantization step amax / 127, plus the f32 rounding of x / scale
+    # (up to 127 * 2^-24 of a step: 1e-4 relative keeps a margin)
+    fb = float(err.abs().max())
+    res["cpsum"] = dict(n=n_el, ms=cp_ms, amax=amax, q_err=q_err, feedback=fb)
+    assert q_err <= amax / 127, (q_err, amax)
+    assert fb <= amax / 254 * (1 + 1e-4), (fb, amax)
+    del x, red, err
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (4) sequence-parallel LM decode against the mesh-less LM
+    params = model.init(seed=5)
+    sp_model = LM(model.rcfg, device=dev, mesh=mesh, sp_decode=True)
+    r = np.random.default_rng(DIST_SEED)
+    vocab = model.rcfg.base.vocab_size
+    prompt = torch.from_numpy(r.integers(9, vocab, (1, DIST_PREFILL))
+                              ).to(dev)
+    toks = torch.from_numpy(r.integers(9, vocab, (DIST_DECODE, 1))).to(dev)
+    s_alloc = DIST_PREFILL + 64
+
+    def decode(m):
+        logits, st = m.prefill(params, {"tokens": prompt}, s_alloc=s_alloc)
+        seen = [logits]
+        for i in range(DIST_DECODE):
+            pos = torch.full((1,), DIST_PREFILL + i, dtype=torch.int32,
+                             device=dev)
+            logits, st = m.decode_step(params, toks[i], st, pos)
+            seen.append(logits)
+        return torch.stack(seen).float()
+
+    want = decode(model)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = decode(sp_model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    err = max_err(got, want)
+    assert torch.isfinite(got).all() and err <= FAMILY_LOGIT_TOL, err
+    res["lm"] = dict(err=err, bitwise=bool(torch.equal(got, want)),
+                     std=float(want.std()), wall_s=wall, counts=counts,
+                     cache=int(sp_model.init_states(1, s_alloc)[0]["k"]
+                               .shape[1]))
+    if rank == 0:
+        with open(Path(out_dir) / "rank0.json", "w") as f:
+            json.dump(res, f)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_phase(dev, timer):
+    """``distributed``: (a) ``lse_shards_phase``; (b) one NCCL rank per
+    visible card on a (world, 1) data x model mesh, each running
+    ``_dist_rank``: sequence-parallel decode over (a)'s cache against
+    (a)'s merged output, ``compressed_psum`` of a tensor of llama3.2-1b's
+    parameter count, ``DIST_TRAIN_STEPS`` data-parallel steps of
+    full-width llama3.2-1b (batch 2 x 2048 a rank; at world 1 bitwise
+    equal to the mesh-less step), and a ``sp_decode=True`` LM (prefill
+    8192 tokens, 32 decode steps) against the mesh-less LM within
+    ``FAMILY_LOGIT_TOL``.  Returns (the LSE row, [launch counts of the
+    data-parallel steps and of the sp-decode LM])."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.compat import run_world
+
+    row, merged = lse_shards_phase(dev, timer)
+    world = torch.cuda.device_count()
+    print(f"distributed: world {world} (one NCCL rank per visible card)")
+    if world < 2:
+        print("distributed: not run at this world (they need 2 ranks or "
+              "more): ring_all_gather, ring_reduce_scatter, "
+              "matmul_ag_overlap, MoE ep_a2a and tp_smap, the pod hop of "
+              "compressed_psum; the CPU tests hold them on 8 gloo ranks")
+    elif world < 4 or world % 2:
+        print("distributed: not run at this world (it needs an even world "
+              "of 4 ranks or more): the pod hop of compressed_psum")
+    d = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        torch.save(merged, Path(d) / "merged.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        sys.stdout.flush()
+        run_world(_dist_rank, world, d, str(Path(d) / "merged.pt"),
+                  init_method=f"tcp://127.0.0.1:{_free_port()}",
+                  device_type="cuda", timeout_s=DIST_TIMEOUT_S)
+        with open(Path(d) / "rank0.json") as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if "multi" in res:
+        mu = res["multi"]
+        print(f"distributed [multi-rank, NCCL world {world}]: "
+              f"ring_all_gather bitwise {mu['all_gather']}, "
+              f"ring_reduce_scatter bitwise {mu['reduce_scatter']} (the "
+              f"reference's hops and adds, simulated); matmul_ag_overlap "
+              f"max_abs_err "
+              f"{mu['matmul_ag_err']:.3g} (tol 1e-3); MoE ep_a2a / tp_smap "
+              f"against tp_dense at capacity 8: {mu['ep_err']:.3g} / "
+              f"{mu['tp_err']:.3g}, aux {mu['aux_err']:.3g} (tol 1e-4)"
+              + (f"; int8 pod hop within {mu['pod_ratio']:.4g} x amax of "
+                 f"full precision (bound 1/127)" if "pod_ratio" in mu
+                 else ""))
+    sp = res["sp"]
+    print(f"distributed [sp decode, NCCL world {world}, {DIST_S} keys]: "
+          f"against (a)'s merged output at kv_len {list(DIST_LENS)}: "
+          + ("bitwise equal" if sp["bitwise_a"] else
+             f"within tol (max_abs_err {sp['err_a']:.3g}; the world's "
+             f"{DIST_S // world}-key shards merge chunks in another order "
+             f"than (a)'s {DIST_SHARDS})")
+          + "; bitwise equal to the decode kernel over the whole cache: "
+          f"{sp['bitwise_whole']}; {sp['ms']:.4f} ms a call (the kernel "
+          f"and two all-reduces)")
+    tr = res["train"]
+    red = tr["reduce_ms"]
+    share = [100 * a / b for a, b in zip(red, tr["wall_ms"])]
+    print(f"distributed [train, llama3.2-1b, {DIST_TRAIN_STEPS} "
+          f"data-parallel steps, batch {TRAIN_BATCH} x {TRAIN_SEQ} a rank]: "
+          f"losses {[round(x, 4) for x in tr['losses']]}"
+          + (f", bitwise equal to the mesh-less step (losses and every "
+             f"updated param): {tr['bitwise']}" if "bitwise" in tr else "")
+          + f"; step wall {[round(w, 1) for w in tr['wall_ms']]} ms, "
+          f"gradient all-reduce {[round(r, 1) for r in red]} ms device "
+          f"({[round(x, 1) for x in share]}% of the step)")
+    if "bitwise" in tr:
+        assert tr["bitwise"], "data-parallel step at world 1 != mesh-less"
+    if "replicated" in tr:
+        print(f"distributed [train]: parameters after the steps bitwise "
+              f"equal on every rank: {tr['replicated']}")
+        assert tr["replicated"], "data-parallel ranks diverged"
+    cp = res["cpsum"]
+    print(f"distributed [compressed_psum, {cp['n'] / 1e9:.3f} B f32 "
+          f"elements]: {cp['ms']:.1f} ms; max |value - input| "
+          f"{cp['q_err']:.4g} <= amax / 127 = {cp['amax'] / 127:.4g}; the "
+          f"error feedback {cp['feedback']:.6g} (half a step: amax / 254 = "
+          f"{cp['amax'] / 254:.6g})")
+    lm = res["lm"]
+    print(f"distributed [sp-decode LM, llama3.2-1b, prefill {DIST_PREFILL} + "
+          f"{DIST_DECODE} decode steps, caches of {lm['cache']} positions a "
+          f"rank]: max |logit - mesh-less LM| {lm['err']:.3g} (tol "
+          f"{FAMILY_LOGIT_TOL}, logit std {lm['std']:.3g}, bitwise "
+          f"{lm['bitwise']}), wall {lm['wall_s']:.2f} s, launches "
+          f"{ {k: v for k, v in lm['counts'].items() if v} }")
+    assert lm["counts"]["decode_attention_lse"] > 0
+    return row, [tr["counts"], lm["counts"]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2628,18 +3143,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, _ = phase("train [llama3.2-1b]", train_llama_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lse_row, dist_launches = phase("distributed", distributed_phase, dev,
+                                   timer)
+    rows.append(lse_row)
     whisper_launches, whisper_train_launches = phase(
         "models [whisper-base] + train [whisper-base]", whisper_phase)
     for r in rows:
         # each path's run, counted from zero: serving, prefix, chaos,
         # gemma3 oracle, the families' model checks and their two serving
-        # paths, build, llama3.2-1b training, whisper's model check and
-        # its training
+        # paths, build, llama3.2-1b training, the data-parallel steps and
+        # the sp-decode LM of the distributed phase, whisper's model check
+        # and its training
         r["launches"] = sum(c[r["name"]] for c in (
             launches, prefix_launches, chaos_launches, gemma3_launches,
             *moe_model_launches, moe_launches, *rec_model_launches,
-            rec_launches, build_launches, train_launches, whisper_launches,
-            whisper_train_launches))
+            rec_launches, build_launches, train_launches, *dist_launches,
+            whisper_launches, whisper_train_launches))
         assert r["launches"] > 0, r["name"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -23,6 +23,15 @@ thread; ``wait`` joins.  ``restore`` rebuilds a tree shaped like
 ``tree_like``, each leaf on the device and in the dtype of its
 counterpart there.  A checkpoint written by the JAX package (its stacked
 layer tree) is not read here.
+
+Under a device mesh (``Checkpointer(mesh=...)``, every rank holding the
+same checkpointer) ``save`` is collective: each leaf is gathered whole
+(``sharding.gather_full`` for a leaf given a ``NamedSharding``, as is
+for a replicated one), rank 0 writes, and every rank waits at a barrier
+until the step is committed.  The layout on disk does not depend on the
+mesh, so ``restore(step, tree_like, shardings)`` onto another mesh is
+elastic: each rank reads (memory-mapped) only its ``local_shard`` of
+every leaf given a ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..distributed.sharding import NamedSharding, gather_full, shard_slices
 from ..tree import leaves_with_paths, tree_map
 
 
@@ -71,11 +82,48 @@ def _pick_shard_axis(shape) -> int:
     return int(np.argmax(shape)) if shape else 0
 
 
+def _sharding_at(shardings: Any, path: str) -> Optional[NamedSharding]:
+    """The ``NamedSharding`` at a leaf path of ``shardings``, or None (the
+    leaf whole)."""
+    node = shardings
+    for part in path.split("/"):
+        if isinstance(node, dict):
+            node = node.get(part)
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            node = getattr(node, part)
+        elif isinstance(node, (list, tuple)):
+            node = node[int(part)]
+        else:
+            break
+    return node if isinstance(node, NamedSharding) else None
+
+
+def _read(d: str, key: str, meta: dict, want) -> np.ndarray:
+    """A leaf's region ``want`` (slices of its full shape, or None for
+    all of it), reading from each shard file only the rows it needs."""
+    base = os.path.join(d, key.replace("/", "__"))
+    shape = tuple(meta["shape"])
+    if not shape or 0 in shape:
+        return np.load(f"{base}__shard0.npy").reshape(shape)
+    want = want or tuple(slice(0, n) for n in shape)
+    ax, n_files = meta["shard_axis"], meta["shards"]
+    per = shape[ax] // n_files
+    lo, hi = want[ax].start, want[ax].stop
+    parts = []
+    for i in range(lo // per, -(-hi // per)):
+        part = np.load(f"{base}__shard{i}.npy", mmap_mode="r")
+        sl = list(want)
+        sl[ax] = slice(max(lo - i * per, 0), min(hi - i * per, per))
+        parts.append(np.array(part[tuple(sl)]))
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=ax)
+
+
 @dataclass
 class Checkpointer:
     directory: str
     keep: int = 3
     shards_per_leaf: int = 4
+    mesh: Any = None                    # collective save under a mesh
     _pool: ThreadPoolExecutor = field(
         default_factory=lambda: ThreadPoolExecutor(max_workers=2))
     _pending: List[Future] = field(default_factory=list)
@@ -84,11 +132,25 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any) -> None:
-        """Async checkpoint of a tree of tensors (host copies taken now)."""
-        host = [(k, *_to_host(v)) for k, v in leaves_with_paths(tree)]
-        self._pending = [f for f in self._pending if not f.done()]
-        self._pending.append(self._pool.submit(self._write, step, host))
+    def save(self, step: int, tree: Any, shardings: Any = None) -> None:
+        """Async checkpoint of a tree of tensors (host copies taken now).
+        Under a mesh: collective and synchronous (module docstring);
+        ``shardings`` names the leaves that ranks hold in shards."""
+        if self.mesh is None:
+            host = [(k, *_to_host(v)) for k, v in leaves_with_paths(tree)]
+            self._pending = [f for f in self._pending if not f.done()]
+            self._pending.append(self._pool.submit(self._write, step, host))
+            return
+        host = []
+        for k, v in leaves_with_paths(tree):
+            sh = _sharding_at(shardings, k)
+            if sh is not None:
+                v = gather_full(v, sh.spec, sh.mesh)
+            if dist.get_rank() == 0:
+                host.append((k, *_to_host(v)))
+        if dist.get_rank() == 0:
+            self._write(step, host)
+        dist.barrier()
 
     def _write(self, step: int,
                host: List[Tuple[str, np.ndarray, str]]) -> None:
@@ -125,9 +187,14 @@ class Checkpointer:
         self._pending = []
 
     # --------------------------------------------------------------- restore
-    def restore(self, step: int, tree_like: Any) -> Any:
+    def restore(self, step: int, tree_like: Any,
+                shardings: Any = None) -> Any:
         """The tree saved at ``step``, shaped like ``tree_like``; each
-        leaf on the device and in the dtype of its counterpart."""
+        leaf on the device and in the dtype of its counterpart.
+        ``shardings`` (a tree of ``sharding.NamedSharding`` in
+        ``tree_like``'s structure, None leaves or subtrees whole) targets
+        a possibly different mesh than the one the checkpoint was written
+        under: each such leaf is this rank's ``local_shard``."""
         self.wait()
         d = self._step_dir(step)
         with open(os.path.join(d, "MANIFEST.json")) as f:
@@ -135,14 +202,11 @@ class Checkpointer:
         loaded = {}
         for key, _ in leaves_with_paths(tree_like):
             meta = manifest[key]
-            parts = [np.load(os.path.join(
-                d, f"{key.replace('/', '__')}__shard{i}.npy"))
-                for i in range(meta["shards"])]
-            arr = parts[0] if len(parts) == 1 else np.concatenate(
-                parts, axis=meta["shard_axis"])
-            # a 0-d leaf was saved as shape (1,) (np.ascontiguousarray)
-            arr = arr.reshape(meta["shape"])
-            loaded[key] = _from_host(arr, meta["dtype"])
+            sh = _sharding_at(shardings, key)
+            want = None if sh is None else shard_slices(
+                meta["shape"], sh.spec, sh.mesh)
+            loaded[key] = _from_host(_read(d, key, meta, want),
+                                     meta["dtype"])
         keys = iter(k for k, _ in leaves_with_paths(tree_like))
         return tree_map(lambda like: loaded[next(keys)].to(
             device=like.device, dtype=like.dtype), tree_like)

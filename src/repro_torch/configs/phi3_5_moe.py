@@ -1,8 +1,8 @@
 """phi3.5-moe-42b-a6.6b: 16-expert top-2 MoE. [hf:microsoft/Phi-3.5-MoE]
 
-The strategy name is the JAX package's default, ``tp_dense``; the port has
-no device mesh, so every strategy runs ``tp_dense`` on one card
-(``models.moe``).
+The strategy name is the JAX package's default, ``tp_dense``: on one card
+(no mesh) it runs as named; over a mesh whose ``model`` axis is larger
+than 1 it runs ``tp_smap`` (``models.moe``).
 """
 from ..config import ATTN_FULL, MOE, ModelConfig, MoEConfig
 

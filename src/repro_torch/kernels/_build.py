@@ -63,6 +63,10 @@ SIGNATURES: Dict[str, List] = {
 }
 
 
+# the log-sum-exp entry of the decode source takes the same arguments
+SIGNATURES["repro_decode_attention_lse"] = SIGNATURES["repro_decode_attention"]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"

@@ -58,6 +58,16 @@
 //   edit the constant and read chip_smoke.py's decode rows.
 //   The wrapper's KV_CHUNK must equal kKvChunk and is checked against
 //   repro_decode_kv_chunk() when the library loads.
+// - The log-sum-exp mode (repro_decode_attention_lse) replaces the local
+//   body of _local_decode_lse in src/repro/distributed/collectives.py
+//   (sequence-parallel decode, where each rank holds a slice of the keys):
+//   the same partial kernel and the same chunk merge, with another
+//   epilogue.  The combine writes the merged unnormalized acc[DH], then l
+//   and m, as f32 [B, Hq, DH + 2] instead of dividing: natural-log base,
+//   scores scaled by sm_scale (the partial kernel's own convention), and
+//   m = -inf, l = 0, acc = 0 for a row with no visible key.  The caller
+//   merges the ranks' triples with the same rule (collectives.py).  Its
+//   bound is the same KV bytes; the f32 output row adds 8 bytes a head.
 // - head_dim 256 (recurrentgemma's local layers, 10 query heads over one
 //   KV head): a bf16 key's row is 512 bytes, 32 lanes of 16 bytes, so a
 //   warp reads one key per load and a lane group is the whole warp.  The
@@ -308,10 +318,13 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
   }
 }
 
-// One thread per (b, query head, d): merge the live chunks in order.
-template <typename TQ, int DH>
+// One thread per (b, query head, d): merge the live chunks in order.  TO is
+// q's dtype, or float with kLse: then the thread writes the merged acc[d],
+// the d == 0 thread also l and m (-inf where no chunk is live), into an
+// f32 row of DH + 2 instead of acc / max(l, 1e-30).
+template <typename TO, int DH, bool kLse>
 __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
-    const float* __restrict__ part, TQ* __restrict__ o,
+    const float* __restrict__ part, TO* __restrict__ o,
     const int* __restrict__ kv_len, int Hq, int S) {
   const int b = blockIdx.y;
   const int t = blockIdx.x * kCombineThreads + threadIdx.x;
@@ -337,13 +350,24 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
     a = a * f + pc[d] * fc;
     mx = m_new;
   }
-  repro::store_f32(a / fmaxf(l, 1e-30f), &o[((long long)b * Hq + h) * DH + d]);
+  if constexpr (kLse) {
+    float* dst = o + ((long long)b * Hq + h) * (DH + 2);
+    dst[d] = a;
+    if (d == 0) {
+      dst[DH] = l;
+      dst[DH + 1] = nc > 0 ? mx : __int_as_float(0xff800000);   // -inf
+    }
+  } else {
+    repro::store_f32(a / fmaxf(l, 1e-30f),
+                     &o[((long long)b * Hq + h) * DH + d]);
+  }
 }
 
 template <typename TQ, typename TKV, int DH, int GH>
-cudaError_t launch_heads(const TQ* q, const TKV* k, const TKV* v, TQ* o,
-                         float* part, const int* rows, long long rows_stride,
-                         int table_block, const int* kv_len, int B, int Hq,
+cudaError_t launch_heads(bool lse, const TQ* q, const TKV* k, const TKV* v,
+                         void* o, float* part, const int* rows,
+                         long long rows_stride, int table_block,
+                         const int* kv_len, int B, int Hq,
                          int Hkv, int S, long long k_sr, long long k_ss,
                          long long k_sh, long long v_sr, long long v_ss,
                          long long v_sh, float scale, cudaStream_t stream) {
@@ -366,9 +390,13 @@ cudaError_t launch_heads(const TQ* q, const TKV* k, const TKV* v, TQ* o,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<TQ, DH>,
-                            static_cast<const float*>(part), o, kv_len, Hq,
-                            S);
+  if (lse)
+    return cudaLaunchKernelEx(&cfg, decode_combine_kernel<float, DH, true>,
+                              static_cast<const float*>(part),
+                              static_cast<float*>(o), kv_len, Hq, S);
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<TQ, DH, false>,
+                            static_cast<const float*>(part),
+                            static_cast<TQ*>(o), kv_len, Hq, S);
 }
 
 // A block takes GH = 4, 2 or 1 query heads of its KV head: the largest
@@ -378,8 +406,8 @@ cudaError_t launch_heads(const TQ* q, const TKV* k, const TKV* v, TQ* o,
 // an f32 cache at head_dim 256 (64 lanes a key) has no instantiation: the
 // wrapper raises for that pair before it gets here.
 template <typename TQ, typename TKV, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* part, const void* rows, long long rows_stride,
+cudaError_t launch(bool lse, const void* q, const void* k, const void* v,
+                   void* o, void* part, const void* rows, long long rows_stride,
                    int table_block, const void* kv_len, int B, int Hq,
                    int Hkv, int S, long long k_sr, long long k_ss,
                    long long k_sh, long long v_sr, long long v_ss,
@@ -390,8 +418,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     const int g = Hq / Hkv;
 #define HEADS(GH)                                                             \
   launch_heads<TQ, TKV, DH, GH>(                                             \
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),                 \
-      static_cast<const TKV*>(v), static_cast<TQ*>(o),                       \
+      lse, static_cast<const TQ*>(q), static_cast<const TKV*>(k),            \
+      static_cast<const TKV*>(v), o,                                         \
       static_cast<float*>(part), static_cast<const int*>(rows), rows_stride, \
       table_block, static_cast<const int*>(kv_len), B, Hq, Hkv, S, k_sr,     \
       k_ss, k_sh, v_sr, v_ss, v_sh, scale, stream)
@@ -402,22 +430,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-}  // namespace
-
-extern "C" int repro_decode_kv_chunk() { return kKvChunk; }
-
-extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, void* o, void* part,
-    const void* rows, long long rows_stride, int table_block,
-    const void* kv_len, int B, int Hq, int Hkv, int S, int head_dim,
-    long long k_sr, long long k_ss, long long k_sh, long long v_sr,
-    long long v_ss, long long v_sh, float scale, int dtype_q, int dtype_kv,
-    void* stream) {
+// The two entries share one argument list: o is q's dtype [B, Hq, DH] for
+// repro_decode_attention, f32 [B, Hq, DH + 2] for repro_decode_attention_lse.
+int run(bool lse, const void* q, const void* k, const void* v, void* o,
+        void* part, const void* rows, long long rows_stride, int table_block,
+        const void* kv_len, int B, int Hq, int Hkv, int S, int head_dim,
+        long long k_sr, long long k_ss, long long k_sh, long long v_sr,
+        long long v_ss, long long v_sh, float scale, int dtype_q,
+        int dtype_kv, void* stream) {
   if (B == 0) return cudaSuccess;
 #define LAUNCH(TQ, TKV, DH)                                                   \
-  launch<TQ, TKV, DH>(q, k, v, o, part, rows, rows_stride, table_block,      \
+  launch<TQ, TKV, DH>(lse, q, k, v, o, part, rows, rows_stride, table_block, \
                       kv_len, B, Hq, Hkv, S, k_sr, k_ss, k_sh, v_sr, v_ss,   \
                       v_sh, scale, static_cast<cudaStream_t>(stream))
   REPRO_DISPATCH(dtype_q, dtype_kv, head_dim, LAUNCH);
 #undef LAUNCH
+}
+
+}  // namespace
+
+extern "C" int repro_decode_kv_chunk() { return kKvChunk; }
+
+#define REPRO_DECODE_ARGS                                                     \
+  const void *q, const void *k, const void *v, void *o, void *part,          \
+      const void *rows, long long rows_stride, int table_block,              \
+      const void *kv_len, int B, int Hq, int Hkv, int S, int head_dim,       \
+      long long k_sr, long long k_ss, long long k_sh, long long v_sr,        \
+      long long v_ss, long long v_sh, float scale, int dtype_q,              \
+      int dtype_kv, void *stream
+#define REPRO_DECODE_PASS                                                     \
+  q, k, v, o, part, rows, rows_stride, table_block, kv_len, B, Hq, Hkv, S,   \
+      head_dim, k_sr, k_ss, k_sh, v_sr, v_ss, v_sh, scale, dtype_q,          \
+      dtype_kv, stream
+
+extern "C" int repro_decode_attention(REPRO_DECODE_ARGS) {
+  return run(false, REPRO_DECODE_PASS);
+}
+
+extern "C" int repro_decode_attention_lse(REPRO_DECODE_ARGS) {
+  return run(true, REPRO_DECODE_PASS);
 }

@@ -1,6 +1,6 @@
 """Flash-decoding: one new query token per sequence over a KV cache.
 
-Two entry points share one CUDA body (``csrc/decode_attention.cu``):
+Three entry points share one CUDA body (``csrc/decode_attention.cu``):
 
 ``decode_attention``
     dense cache — q [B, Hq, Dh] over k/v [B, S, Hkv, Dh]: row b of the
@@ -11,6 +11,14 @@ Two entry points share one CUDA body (``csrc/decode_attention.cu``):
     reads row ``slots[b]``, or row ``block_tables[b, pos // table_block]``
     per cache block.  The scratch row ``N_rows - 1`` is a legal, repeatable
     sentinel.
+
+``decode_attention_lse``
+    the dense entry's log-sum-exp parts: f32 ``[B, Hq, Dh + 2]`` holding
+    the merged unnormalized ``acc[Dh]``, then ``l`` and ``m`` (scores
+    scaled by ``sm_scale``, natural-log base; ``m = -inf``, ``l = 0``,
+    ``acc = 0`` for a row with no visible key).  It is the local body of
+    sequence-parallel decode (``distributed.collectives``), which merges
+    the ranks' parts: the JAX package's ``_local_decode_lse``.
 
 They replace ``decode_attention_pallas`` and
 ``paged_decode_attention_pallas`` of the JAX package.  Both take CUDA
@@ -28,8 +36,9 @@ starts below ``n = min(kv_len[b], S)``, the chunk's unnormalized
 workspace ``[B, Hq, ceil(S / KV_CHUNK), Dh + 2]`` that the wrapper
 allocates with ``torch.empty``.  The second merges chunks
 ``0 .. ceil(n / KV_CHUNK) - 1`` in that order (log-sum-exp rule, no
-atomics) and writes ``acc / max(l, 1e-30)`` in q's dtype.  The chunks
-merged depend on ``n`` alone, so the output is deterministic, the same
+atomics) and writes ``acc / max(l, 1e-30)`` in q's dtype (the LSE entry
+writes ``acc``, ``l`` and ``m`` as they are).  The chunks merged depend
+on ``n`` alone, so the output is deterministic, the same
 for the paged and dense entries, and independent of the rest of the
 batch.
 """
@@ -44,7 +53,8 @@ import torch
 from . import _build, ref
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "decode_attention_lse": 0}
 
 KV_CHUNK = 128              # keys per split-KV chunk; == kKvChunk in the .cu
 _SLOT_BLOCK = 1 << 30       # table granularity meaning "one row per sequence"
@@ -95,15 +105,23 @@ def _check_common(q, k, v, kv_len, where: str) -> None:
 
 
 def _launch(q, k, v, rows, rows_stride: int, table_block: int, kv_len,
-            sm_scale: Optional[float], where: str) -> torch.Tensor:
+            sm_scale: Optional[float], where: str,
+            lse: bool = False) -> torch.Tensor:
     B, Hq, Dh = q.shape
     _, S, Hkv, _ = k.shape
     scale = sm_scale if sm_scale is not None else 1.0 / (Dh ** 0.5)
-    out = torch.empty_like(q)
+    if lse:
+        out = torch.empty((B, Hq, Dh + 2), dtype=torch.float32,
+                          device=q.device)
+    else:
+        out = torch.empty_like(q)
     part = torch.empty((B, Hq, -(-S // KV_CHUNK), Dh + 2), dtype=torch.float32,
                        device=q.device)
+    lib = _library()
+    entry = lib.repro_decode_attention_lse if lse else \
+        lib.repro_decode_attention
     with torch.cuda.device(q.device):
-        err = _library().repro_decode_attention(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             part.data_ptr(),
             None if rows is None else rows.data_ptr(), rows_stride,
@@ -127,6 +145,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: cache batch != query batch")
     return _launch(q, k, v, None, 0, _SLOT_BLOCK, kv_len, sm_scale,
                    "decode_attention")
+
+
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, kv_len: torch.Tensor, *,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The log-sum-exp parts of dense decode, f32 [B, Hq, Dh + 2]:
+    ``acc[Dh]``, ``l``, ``m`` (see the module docstring).  CUDA kernel."""
+    _check_common(q, k, v, kv_len, "decode_attention_lse")
+    if k.shape[0] != q.shape[0]:
+        raise ValueError("decode_attention_lse: cache batch != query batch")
+    return _launch(q, k, v, None, 0, _SLOT_BLOCK, kv_len, sm_scale,
+                   "decode_attention_lse", lse=True)
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -160,6 +190,26 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
 def decode_attention_plain(q, k, v, kv_len, *, sm_scale=None):
     """Plain PyTorch version of :func:`decode_attention`."""
     return ref.decode_reference(q, k, v, kv_len=kv_len, sm_scale=sm_scale)
+
+
+def decode_attention_lse_plain(q, k, v, kv_len, *, sm_scale=None):
+    """Plain PyTorch version of :func:`decode_attention_lse`: the JAX
+    package's ``_local_decode_lse`` over the keys ``[0, kv_len[b])``."""
+    B, S, Hkv, Dh = k.shape
+    g = q.shape[1] // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (Dh ** 0.5)
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", qf, kf)                  # [B, Hq, S]
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < kv_len.to(q.device).long()[:, None])[:, None, :]
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1)                                          # [B, Hq]
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
+    acc = torch.einsum("bhk,bkhd->bhd", p, vf)
+    return torch.cat([acc, p.sum(-1)[..., None], m[..., None]], dim=-1)
 
 
 def paged_decode_attention_plain(q, k_arena, v_arena, slots, kv_len, *,

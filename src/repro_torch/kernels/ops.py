@@ -128,6 +128,23 @@ def decode_attention(
     return _dec.decode_attention_plain(q, k, v, kv_len, sm_scale=sm_scale)
 
 
+def decode_attention_lse(
+    q: torch.Tensor,               # [B, Hq, Dh]
+    k: torch.Tensor,               # [B, S, Hkv, Dh]
+    v: torch.Tensor,
+    kv_len: torch.Tensor,          # [B] valid keys of this cache
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode's log-sum-exp parts, f32 [B, Hq, Dh + 2]: ``acc``, ``l``,
+    ``m`` (the local body of sequence-parallel decode)."""
+    if q.is_cuda:
+        return _dec.decode_attention_lse(q.contiguous(), k, v, _i32(kv_len),
+                                         sm_scale=sm_scale)
+    return _dec.decode_attention_lse_plain(q, k, v, kv_len,
+                                           sm_scale=sm_scale)
+
+
 def arena_decode_attention(
     q: torch.Tensor,               # [B, Hq, Dh]
     k_arena: torch.Tensor,         # [N_rows, S, Hkv, Dh] persistent arena

@@ -63,6 +63,18 @@ too (whisper adds absolute sinusoids to its inputs instead).
 
 Training runs ``full`` mode with ``want_cache=False``: ``ops.attention``
 then records the gradient (``kernels.flash_attention.FlashAttentionFn``).
+
+Sequence-parallel decode (``sp_mesh``, a device mesh): a full-attention
+cache is cut along its sequence over the mesh's ``data`` axis, rank ``i``
+holding positions ``[i * S_local, (i + 1) * S_local)`` in a cache of
+``S_local`` slots.  A prefill (``extend`` at ``q_offset`` 0, or ``full``
+with a cache) attends over the whole chunk on every rank and keeps the
+rank's slice; a decode step writes the token's K/V only on the rank that
+owns its position and attends through
+``distributed.collectives.sp_decode_attention`` (the decode kernel's
+log-sum-exp mode and two all-reduces).  Windowed layers keep their ring
+path, as in the JAX package.  An extend at ``q_offset > 0`` and paged
+serving take no sharded cache.
 """
 from __future__ import annotations
 
@@ -71,6 +83,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.collectives import sp_decode_attention
+from ..distributed.compat import axis_index, axis_size
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
 from .layers import (apply_mrope, apply_rope, init_dense, init_rmsnorm,
@@ -89,6 +103,28 @@ def init_attention(gen: torch.Generator, d: int, h: int, kv: int, dh: int,
         p["q_norm"] = init_rmsnorm(dh, gen.device)
         p["k_norm"] = init_rmsnorm(dh, gen.device)
     return p
+
+
+def spec_attention(kv_sharded: bool, qk_norm: bool) -> Dict[str, Any]:
+    kv_spec = (None, "tp", None) if kv_sharded else (None, None, None)
+    s = {
+        "wq": (None, "tp", None),
+        "wk": kv_spec,
+        "wv": kv_spec,
+        "wo": ("tp", None, None),
+    }
+    if qk_norm:
+        s["q_norm"] = {"scale": (None,)}
+        s["k_norm"] = {"scale": (None,)}
+    return s
+
+
+def spec_kv_cache(kv_sharded: bool, sp: bool) -> Dict[str, Any]:
+    """Cache logical spec: batch over dp; optionally sequence over
+    sp (data)."""
+    seq = "sp" if sp else None
+    kv = "tp" if kv_sharded else None
+    return {"k": ("dp", seq, kv, None), "v": ("dp", seq, kv, None)}
 
 
 def init_kv_cache(batch: int, s_alloc: int, kv: int, dh: int, dtype,
@@ -151,6 +187,21 @@ def _ring_extend(q, k, v, ck, cv, positions, *, window: int, q_offset: int,
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
 
 
+def _sp_rank(mesh) -> int:
+    return axis_index(mesh, "data")
+
+
+def _sp_slice(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of a [B, S, ...] cache cut over ``data``."""
+    n = axis_size(mesh, "data")
+    if t.shape[1] % n:
+        raise ValueError(f"a sequence-parallel cache of {t.shape[1]} "
+                         f"positions does not divide over {n} ranks")
+    s = t.shape[1] // n
+    i = _sp_rank(mesh)
+    return t[:, i * s:(i + 1) * s].contiguous()
+
+
 def attention_apply(
     p: Dict[str, Any],
     x: torch.Tensor,                           # [B, S, D]
@@ -176,8 +227,12 @@ def attention_apply(
     positions3: Optional[torch.Tensor] = None,  # [B, S, 3] for M-RoPE
     use_rope: bool = True,                     # whisper: absolute sinusoids
     kv_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross K, V
+    sp_mesh=None,                              # sequence-parallel caches
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     local = window is not None and window > 0
+    sp = sp_mesh is not None and not local
+    if sp and slots is not None:
+        raise ValueError("paged serving takes no sequence-parallel cache")
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
@@ -211,7 +266,10 @@ def attention_apply(
         out = ops.attention(q, k, v, causal=causal, window=window,
                             sm_scale=sm_scale)
         if want_cache:
-            if local:
+            if sp:
+                new_cache = {"k": _sp_slice(k, sp_mesh),
+                             "v": _sp_slice(v, sp_mesh)}
+            elif local:
                 ck = k.new_zeros((B, window) + k.shape[2:])
                 cv = torch.zeros_like(ck)
                 new_cache = _ring_write({"k": ck, "v": cv}, k, v, positions,
@@ -231,6 +289,20 @@ def attention_apply(
                 q, ck, cv, slots, kv_valid=kv_valid,
                 block_tables=block_tables, causal=causal,
                 q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
+        elif sp:
+            # prefill of a sequence-parallel cache: the whole chunk on
+            # every rank, then the rank's slice of it
+            if q_offset != 0:
+                raise NotImplementedError(
+                    "a sequence-parallel cache takes a prefill at q_offset 0 "
+                    "and decode steps")
+            kk, vv = k.to(ck.dtype), v.to(cv.dtype)
+            out = ops.attention(q, kk, vv, causal=causal, kv_len=kv_len,
+                                sm_scale=sm_scale)
+            lo = _sp_rank(sp_mesh) * ck.shape[1]
+            n = max(min(S - lo, ck.shape[1]), 0)
+            ck[:, :n] = kk[:, lo:lo + n]
+            cv[:, :n] = vv[:, lo:lo + n]
         elif local and q_offset == 0:
             # fresh prefill into a preallocated ring: the windowed kernel
             # over the chunk itself, then the ring write
@@ -266,6 +338,18 @@ def attention_apply(
             out1 = ops.arena_decode_attention(
                 q[:, 0], ck, cv, slots, cache_len + 1,
                 block_tables=block_tables, sm_scale=sm_scale)
+        elif sp:
+            # the token's K/V land on the rank that owns position
+            # cache_len[b] (the others rewrite a slot with itself)
+            s_loc = ck.shape[1]
+            at_g = cache_len.long() - _sp_rank(sp_mesh) * s_loc
+            own = ((at_g >= 0) & (at_g < s_loc))[:, None, None]
+            at = torch.clamp(at_g, 0, s_loc - 1)
+            bidx = torch.arange(B, device=x.device)
+            ck[bidx, at] = torch.where(own, k[:, 0].to(ck.dtype), ck[bidx, at])
+            cv[bidx, at] = torch.where(own, v[:, 0].to(cv.dtype), cv[bidx, at])
+            out1 = sp_decode_attention(q[:, 0], ck, cv, cache_len + 1,
+                                       sp_mesh, sm_scale)
         else:
             bidx = torch.arange(B, device=x.device)
             if local:

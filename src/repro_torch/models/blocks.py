@@ -29,9 +29,10 @@ import torch
 from ..config import (ATTN_FULL, ATTN_LOCAL, AUDIO, ENC_ATTN, MLSTM, RGLRU,
                       SLSTM, ResolvedConfig)
 from . import ssm
-from .attention import attention_apply, init_attention
-from .layers import init_mlp, init_rmsnorm, mlp_apply, rmsnorm_apply
-from .moe import init_moe, moe_apply
+from .attention import attention_apply, init_attention, spec_attention
+from .layers import init_mlp, init_rmsnorm, mlp_apply, rmsnorm_apply, \
+    spec_mlp, spec_rmsnorm
+from .moe import init_moe, moe_apply, spec_moe
 
 PORTED_KINDS = (ATTN_FULL, ATTN_LOCAL, ENC_ATTN, MLSTM, SLSTM, RGLRU)
 ATTN_KINDS = (ATTN_FULL, ATTN_LOCAL, ENC_ATTN)
@@ -87,15 +88,70 @@ def init_block(gen: torch.Generator, rcfg: ResolvedConfig, kind: str,
     return p
 
 
+def spec_block(rcfg: ResolvedConfig, kind: str) -> Dict[str, Any]:
+    """Logical specs of one layer's parameters (``init_block``'s tree)."""
+    b = rcfg.base
+    kv_sharded = rcfg.padded_kv_heads >= rcfg.tp
+    s: Dict[str, Any] = {"norm1": spec_rmsnorm()}
+    if kind in ATTN_KINDS:
+        s["attn"] = spec_attention(kv_sharded, b.qk_norm)
+    elif kind == MLSTM:
+        s["mlstm"] = ssm.spec_mlstm()
+    elif kind == SLSTM:
+        s["slstm"] = ssm.spec_slstm()
+    elif kind == RGLRU:
+        s["rglru"] = ssm.spec_rglru()
+    if _has_ffn(rcfg):
+        s["norm2"] = spec_rmsnorm()
+        if b.moe is not None:
+            s["moe"] = spec_moe(b.moe.strategy)
+        else:
+            s["mlp"] = spec_mlp()
+    return s
+
+
+def spec_block_state(rcfg: ResolvedConfig, kind: str, *, batch_sharded: bool,
+                     seq_sharded: bool) -> Dict[str, Any]:
+    """Logical spec of a layer's state.  ``batch_sharded``: batch over dp;
+    ``seq_sharded``: a full-attention cache's sequence over data
+    (sequence-parallel decode; ring caches and recurrent states stay
+    whole)."""
+    kv_sharded = rcfg.padded_kv_heads >= rcfg.tp
+    dp = "dp" if batch_sharded else None
+    if kind in ATTN_KINDS:
+        sp = "sp" if (seq_sharded and kind != ATTN_LOCAL) else None
+        kv = "tp" if kv_sharded else None
+        return {"k": (dp, sp, kv, None), "v": (dp, sp, kv, None)}
+    if kind == MLSTM:
+        s = ssm.spec_mlstm_state()
+    elif kind == SLSTM:
+        s = ssm.spec_slstm_state()
+    elif kind == RGLRU:
+        s = ssm.spec_rglru_state()
+    else:
+        raise ValueError(kind)
+    if not batch_sharded:
+        s = {n: tuple(None if a == "dp" else a for a in t)
+             for n, t in s.items()}
+    return s
+
+
 def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
-                kv_dtype: torch.dtype) -> LeafShapes:
+                kv_dtype: torch.dtype, seq_shards: int = 1) -> LeafShapes:
     """(shape, dtype) of every state leaf of one layer.  ``kv_dtype`` is
     the storage dtype of attention caches only; a sliding-window layer's
-    ring never needs more positions than its window."""
+    ring never needs more positions than its window.  ``seq_shards``
+    cuts a full-attention cache's ``s_alloc`` positions over that many
+    ranks (sequence-parallel decode)."""
     b = rcfg.base
     if kind in ATTN_KINDS:
         if kind == ATTN_LOCAL:
             s_alloc = min(b.sliding_window, s_alloc)
+        elif s_alloc % seq_shards:
+            raise ValueError(f"s_alloc {s_alloc} does not divide over "
+                             f"{seq_shards} sequence shards")
+        else:
+            s_alloc //= seq_shards
         shape = (batch, s_alloc, rcfg.padded_kv_heads, rcfg.head_dim)
         return {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
     if kind == MLSTM:
@@ -109,8 +165,8 @@ def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
 
 
 def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
-                     s_alloc: int, kv_dtype: torch.dtype, device
-                     ) -> Dict[str, torch.Tensor]:
+                     s_alloc: int, kv_dtype: torch.dtype, device,
+                     seq_shards: int = 1) -> Dict[str, torch.Tensor]:
     """A fresh state: zeroed caches; recurrent states at their initial
     values (mLSTM/sLSTM ``m`` at ``LOG_EPS``, sLSTM ``n`` at 1e-6)."""
     b = rcfg.base
@@ -121,7 +177,7 @@ def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
         return ssm.init_slstm_state(batch, b.d_model, device)
     return {n: torch.zeros(shape, dtype=dt, device=device)
             for n, (shape, dt) in state_shape(rcfg, kind, batch, s_alloc,
-                                              kv_dtype).items()}
+                                              kv_dtype, seq_shards).items()}
 
 
 def block_apply(
@@ -139,6 +195,9 @@ def block_apply(
     block_tables: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     positions3: Optional[torch.Tensor] = None,
+    mesh=None,                                 # device mesh (MoE strategies)
+    dp_spec=None,                              # batch spec over the mesh
+    sp_mesh=None,                              # sequence-parallel caches
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Any]:
     """Returns (y, new_state, MoE aux loss or 0.0).  Attention caches are
     updated in place (the returned state is the same dict); recurrent
@@ -161,7 +220,8 @@ def block_apply(
             cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
             slots=slots, block_tables=block_tables,
             want_cache=(mode != "train"),
-            qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps)
+            qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps,
+            sp_mesh=sp_mesh)
     else:
         assert slots is None, \
             "paged serving (slots) supports attention-state models only"
@@ -185,7 +245,8 @@ def block_apply(
         if b.moe is not None:
             y, aux = moe_apply(p["moe"], h2, top_k=b.moe.top_k,
                                capacity_factor=b.moe.capacity_factor,
-                               strategy=b.moe.strategy, act=b.act)
+                               strategy=b.moe.strategy, act=b.act,
+                               mesh=mesh, dp_spec=dp_spec)
         else:
             y = mlp_apply(p["mlp"], h2, b.act)
         x = x + y

@@ -37,6 +37,10 @@ def init_rmsnorm(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+def spec_rmsnorm():
+    return {"scale": (None,)}
+
+
 def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
@@ -47,6 +51,10 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def init_layernorm(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def spec_layernorm():
+    return {"scale": (None,), "bias": (None,)}
 
 
 def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5
@@ -125,6 +133,10 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype) -> dict:
     }
 
 
+def spec_mlp():
+    return {"w1": (None, "tp"), "w3": (None, "tp"), "w2": ("tp", None)}
+
+
 def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     a = ACTS[act]
     h = a(x @ params["w1"]) * (x @ params["w3"])
@@ -139,6 +151,11 @@ def init_mlp2(gen: torch.Generator, d: int, f: int, dtype) -> dict:
         "w2": _dense_init(gen, (f, d), f, dtype),
         "b2": torch.zeros((d,), dtype=torch.float32, device=gen.device),
     }
+
+
+def spec_mlp2():
+    return {"w1": (None, "tp"), "b1": ("tp",), "w2": ("tp", None),
+            "b2": (None,)}
 
 
 def mlp2_apply(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
@@ -167,6 +184,11 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
     t = torch.randn((vocab, d), generator=gen, device=gen.device,
                     dtype=torch.float32) * 0.02
     return {"table": t.to(dtype)}
+
+
+def spec_embed():
+    # vocab-parallel embedding: rows sharded over the model axis
+    return {"table": ("tp", None)}
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,17 @@ grad.
 
 ``LM(rcfg, device=...)`` runs on the CUDA device by default and raises
 when none is present; tests pass ``device="cpu"``.
+
+``LM(..., mesh=, sp_decode=)`` places the model on a device mesh
+(``distributed.compat``; every rank runs the same program on its own
+shard): MoE layers take the mesh strategies (``models.moe``), and with
+``sp_decode`` every full-attention cache is cut along its sequence over
+the ``data`` axis (``init_states`` allocates ``s_alloc / n_data``
+positions a rank) and decode steps go through
+``distributed.collectives.sp_decode_attention``, as the JAX package's
+``Runtime(mesh=, sp_decode=)``.  Dense layers compute replicated.
+``param_specs`` gives the logical spec of every parameter, the JAX
+package's with the stacked layer axis dropped.
 """
 from __future__ import annotations
 
@@ -44,8 +55,10 @@ import torch
 
 from ..config import ATTN_FULL, ResolvedConfig
 from . import blocks
+from ..distributed.compat import axis_size
+from ..distributed.sharding import batch_pspec
 from .layers import embed_apply, init_embed, init_rmsnorm, lm_head_apply, \
-    rmsnorm_apply
+    rmsnorm_apply, spec_embed, spec_rmsnorm
 from .runtime import DTYPES, DeviceLike, resolve_device
 
 States = List[Dict[str, torch.Tensor]]
@@ -71,10 +84,21 @@ class LM:
     blocks; dense, MoE or no FFN; optional ``sqrt(d_model)`` embedding
     scale (gemma3, recurrentgemma); M-RoPE and vision patches (qwen2-vl)."""
 
-    def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda"):
+    def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda",
+                 mesh=None, sp_decode: bool = False):
         blocks.check_supported(rcfg)
         self.rcfg = rcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sp_decode = sp_decode and mesh is not None
+
+    @property
+    def _sp_mesh(self):
+        return self.mesh if self.sp_decode else None
+
+    @property
+    def _seq_shards(self) -> int:
+        return axis_size(self.mesh, "data") if self.sp_decode else 1
 
     @property
     def dtype(self) -> torch.dtype:
@@ -102,15 +126,32 @@ class LM:
                        for kind in self.kinds],
         }
 
+    def param_specs(self) -> Dict[str, Any]:
+        """Logical specs of ``init``'s tree (one dict a layer)."""
+        return {
+            "embed": spec_embed(),
+            "final_norm": spec_rmsnorm(),
+            "layers": [blocks.spec_block(self.rcfg, kind)
+                       for kind in self.kinds],
+        }
+
+    def state_specs(self, *, batch_sharded: bool, seq_sharded: bool
+                    ) -> List[Dict[str, Any]]:
+        return [blocks.spec_block_state(self.rcfg, kind,
+                                        batch_sharded=batch_sharded,
+                                        seq_sharded=seq_sharded)
+                for kind in self.kinds]
+
     # ---------------------------------------------------------------- states
     def init_states(self, batch: int, s_alloc: int, kv_dtype=None) -> States:
         """Fresh per-layer states: zeroed KV caches, recurrent states at
         their initial values.  ``kv_dtype`` overrides the storage dtype of
         the KV caches only (bf16 arenas for f32 models); recurrent states
-        stay f32."""
+        stay f32.  With ``sp_decode`` a full-attention cache holds this
+        rank's ``s_alloc / n_data`` positions."""
         dt = kv_dtype or self.dtype
         return [blocks.init_block_state(self.rcfg, kind, batch, s_alloc, dt,
-                                        self.device)
+                                        self.device, self._seq_shards)
                 for kind in self.kinds]
 
     def state_shapes(self, batch: int, s_alloc: int, kv_dtype=None
@@ -118,7 +159,8 @@ class LM:
         """(shape, dtype) of every state leaf, allocating nothing: what
         ``init_states`` allocates, per layer kind."""
         dt = kv_dtype or self.dtype
-        return [blocks.state_shape(self.rcfg, kind, batch, s_alloc, dt)
+        return [blocks.state_shape(self.rcfg, kind, batch, s_alloc, dt,
+                                   self._seq_shards)
                 for kind in self.kinds]
 
     # ------------------------------------------------------- arena state API
@@ -184,13 +226,16 @@ class LM:
         0.0)."""
         new_states = []
         aux = 0.0
+        dp_spec = None if self.mesh is None else batch_pspec(self.mesh,
+                                                             None, None)
         for i, (lp, kind) in enumerate(zip(params["layers"], self.kinds)):
             x, ns, a = blocks.block_apply(
                 lp, x, kind=kind, rcfg=self.rcfg, mode=mode,
                 state=None if states is None else states[i],
                 cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
                 slots=slots, block_tables=block_tables, positions=positions,
-                positions3=positions3)
+                positions3=positions3, mesh=self.mesh, dp_spec=dp_spec,
+                sp_mesh=self._sp_mesh)
             new_states.append(ns)
             if mode == "train":       # serving passes discard the aux loss
                 aux = aux + a

@@ -21,10 +21,27 @@ capacity, which the expert products never read, so nothing syncs with the
 host.  The expert products are plain batched matrix products, as they are
 outside any Pallas kernel in the JAX package.
 
-``moe_apply`` takes the reference's ``strategy`` names; without a device
-mesh (the port has none yet) every strategy runs ``tp_dense``, as the
-JAX package's ``moe_apply`` does without one.  ``ep_a2a`` and ``tp_smap``
-(expert and tensor parallelism over a mesh) are not ported.
+``moe_apply`` takes the reference's ``strategy`` names and its dispatch
+rules.  Without a device mesh every strategy runs ``tp_dense``.  Over a
+mesh (``distributed.compat``), each rank passes its local batch shard:
+
+``ep_a2a``   experts sharded over ``data``, d_ff over ``model``: every
+             rank routes its own tokens (capacity ``max(int(t * top_k *
+             cf / E), 8)`` over its ``t`` tokens), fills the full ``[E, C,
+             D]`` buffer, and two ``all_to_all_single`` on the data group
+             carry expert slabs to their owners and back; the partial
+             down-projection is all-reduced over ``model``.
+``tp_smap``  experts replicated, d_ff over ``model``: the per-row dispatch
+             of ``tp_dense`` with capacity ``max(int(S * top_k * 1.6 * cf
+             / E), 8)`` on the rank's d_ff slice, the combine BEFORE the
+             ``model`` all-reduce (it is linear, so it commutes with the
+             reduction and moves the token batch instead of the buffer),
+             and the aux loss averaged over ``model``.
+
+Each rank cuts its weight slices from the full (replicated) parameters
+with ``distributed.sharding.local_shard`` under ``spec_moe(strategy)``,
+on every call.  The mesh strategies are forward only: they raise when
+autograd would record them (gradients through them are not ported).
 
 ``DROP_LOG``: when set to a list, every MoE layer appends the keep mask
 of its call (``[B, S, top_k]`` bool, on the device: nothing syncs), so a
@@ -36,7 +53,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.compat import axis_group, axis_names, axis_size, \
+    mesh_shape
+from ..distributed.sharding import local_shard, logical_to_pspec
 from .layers import ACTS, _dense_init
 
 STRATEGIES = ("tp_dense", "tp_smap", "ep_a2a")
@@ -52,6 +73,16 @@ def init_moe(gen: torch.Generator, d: int, f: int, num_experts: int,
         "w1": _dense_init(gen, (num_experts, d, f), d, dtype),
         "w3": _dense_init(gen, (num_experts, d, f), d, dtype),
         "w2": _dense_init(gen, (num_experts, f, d), f, dtype),
+    }
+
+
+def spec_moe(strategy: str) -> Dict[str, tuple]:
+    e = "ep" if strategy == "ep_a2a" else None
+    return {
+        "router": (None, None),
+        "w1": (e, None, "tp"),
+        "w3": (e, None, "tp"),
+        "w2": (e, "tp", None),
     }
 
 
@@ -147,12 +178,107 @@ def moe_apply_tp_dense(params, x: torch.Tensor, *, top_k: int,
     return out, aux
 
 
+def _local_weights(params, strategy: str, mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slices of the expert weights under ``spec_moe``."""
+    spec = spec_moe(strategy)
+    out = {"router": params["router"]}
+    for k in ("w1", "w3", "w2"):
+        out[k] = local_shard(params[k], logical_to_pspec(spec[k], mesh),
+                             mesh)
+    return out
+
+
+def _forward_only(params, x: torch.Tensor, strategy: str) -> None:
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in params.values())):
+        raise NotImplementedError(
+            f"MoE strategy {strategy!r} over a mesh is forward only: "
+            "gradients through it are not ported")
+
+
+def moe_apply_ep_a2a(params, x: torch.Tensor, *, top_k: int,
+                     capacity_factor: float, act: str = "silu", mesh,
+                     dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over this rank's tokens x [B_loc, S, D] ->
+    (out [B_loc, S, D], this rank's aux loss)."""
+    _forward_only(params, x, "ep_a2a")
+    b_loc, S, D = x.shape
+    E = params["w1"].shape[0]
+    n_data = axis_size(mesh, "data")
+    assert E % n_data == 0, (E, n_data)
+    e_loc = E // n_data
+    w = _local_weights(params, "ep_a2a", mesh)    # w1 [E_loc, D, F_loc]
+    t = b_loc * S
+    x2d = x.reshape(t, D)
+    capacity = max(int(t * top_k * capacity_factor / E), 8)
+    ids, weights, logits = _route(w["router"], x2d, top_k)
+    pos, keep = _dispatch_indices(ids, E, capacity)
+    if DROP_LOG is not None:
+        DROP_LOG.append(keep)
+    # kept assignments at unique (expert, position); dropped ones at the
+    # spare position ``capacity``, cut off before the exchange
+    buf = x.new_zeros((E, capacity + 1, D))
+    buf[ids, torch.where(keep, pos, capacity)] = \
+        x2d[:, None, :].expand(t, top_k, D)
+    send = buf[:, :capacity].reshape(n_data, e_loc, capacity, D).contiguous()
+    data = axis_group(mesh, "data")
+    # dispatch: slab j of every rank goes to rank j, which then holds the
+    # tokens of every rank for its own experts
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=data)
+    recv = recv.transpose(0, 1).reshape(e_loc, n_data * capacity, D)
+    out_loc = _expert_ffn(w["w1"], w["w3"], w["w2"], recv, act)
+    if "model" in axis_names(mesh):
+        dist.all_reduce(out_loc, group=axis_group(mesh, "model"))
+    # return: the reverse exchange
+    back = out_loc.reshape(e_loc, n_data, capacity, D).transpose(0, 1)
+    ret = torch.empty_like(send)
+    dist.all_to_all_single(ret, back.contiguous(), group=data)
+    ret = ret.reshape(E, capacity, D)
+    gathered = ret[ids, torch.where(keep, pos, 0)]         # [t, K, D]
+    gathered = torch.where(keep[..., None], gathered.float(), 0.0)
+    out = (gathered * weights[..., None]).sum(-2).to(x.dtype)
+    return out.reshape(b_loc, S, D), _aux_loss(logits, ids, E)
+
+
+def moe_apply_tp_smap(params, x: torch.Tensor, *, top_k: int,
+                      capacity_factor: float, act: str = "silu", mesh,
+                      dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor-parallel MoE over this rank's rows x [B_loc, S, D], the
+    ``model`` all-reduce after the per-token combine."""
+    _forward_only(params, x, "tp_smap")
+    b_loc, S, D = x.shape
+    E = params["w1"].shape[0]
+    row_cf = capacity_factor * ROW_CAPACITY_SCALE
+    capacity = max(int(S * top_k * row_cf / E), 8)
+    w = _local_weights(params, "tp_smap", mesh)   # w1 [E, D, F_loc]
+    out, logits, ids = _moe_tokens(w, x, top_k=top_k, capacity=capacity,
+                                   act=act)       # partial over d_ff
+    model = axis_group(mesh, "model")
+    dist.all_reduce(out, group=model)             # combined, not buffer
+    aux = _aux_loss(logits.reshape(b_loc * S, E),
+                    ids.reshape(b_loc * S, top_k), E)
+    dist.all_reduce(aux, group=model)
+    return out, aux / axis_size(mesh, "model")
+
+
 def moe_apply(params, x: torch.Tensor, *, top_k: int, capacity_factor: float,
-              strategy: str = "tp_dense", act: str = "silu"
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN by strategy name; with no device mesh every strategy
-    runs ``tp_dense``, as in the JAX package."""
+              strategy: str = "tp_dense", act: str = "silu", mesh=None,
+              dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN by strategy name, with the JAX package's dispatch: a
+    mesh whose ``data`` axis is larger than 1 runs ``ep_a2a`` for it; a
+    ``model`` axis larger than 1 with a batch spec runs ``tp_smap`` for
+    ``tp_dense`` and ``tp_smap``; everything else runs ``tp_dense``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown MoE strategy {strategy!r}")
-    return moe_apply_tp_dense(params, x, top_k=top_k,
-                              capacity_factor=capacity_factor, act=act)
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, act=act)
+    if mesh is not None and "model" in axis_names(mesh):
+        sizes = mesh_shape(mesh)
+        if strategy == "ep_a2a" and sizes.get("data", 1) > 1:
+            return moe_apply_ep_a2a(params, x, mesh=mesh, dp_spec=dp_spec,
+                                    **kw)
+        if strategy in ("tp_dense", "tp_smap") and sizes["model"] > 1 \
+                and dp_spec is not None:
+            return moe_apply_tp_smap(params, x, mesh=mesh, dp_spec=dp_spec,
+                                     **kw)
+    return moe_apply_tp_dense(params, x, **kw)

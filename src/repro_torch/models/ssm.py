@@ -59,6 +59,21 @@ def init_mlstm(gen: torch.Generator, d: int, heads: int, dtype) -> State:
     }
 
 
+def spec_mlstm() -> Dict[str, tuple]:
+    return {
+        "wq": (None, "tp"), "wk": (None, "tp"), "wv": (None, "tp"),
+        "wi": (None, None), "wf": (None, None),
+        "wo": (None, "tp"), "wz": (None, "tp"), "wd": ("tp", None),
+        "bf": (None,), "bi": (None,),
+    }
+
+
+def spec_mlstm_state() -> Dict[str, tuple]:
+    # dv (C dim 2) sharded over model: heads (4) < tp, so shard inner dim
+    return {"C": ("dp", None, "tp", None), "n": ("dp", None, "tp"),
+            "m": ("dp", None)}
+
+
 def mlstm_state_shape(batch: int, heads: int, dh: int
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     return {"C": ((batch, heads, dh, dh), f32), "n": ((batch, heads, dh), f32),
@@ -201,6 +216,15 @@ def init_slstm(gen: torch.Generator, d: int, heads: int, dtype) -> State:
     }
 
 
+def spec_slstm() -> Dict[str, tuple]:
+    return {"w": (None, "tp"), "r": (None, None, None, None), "b": (None,),
+            "wo": (None, "tp"), "wd": ("tp", None)}
+
+
+def spec_slstm_state() -> Dict[str, tuple]:
+    return {k: ("dp", "tp") for k in ("c", "n", "h", "m")}
+
+
 def slstm_state_shape(batch: int, d: int
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     return {k: ((batch, d), f32) for k in ("c", "n", "h", "m")}
@@ -275,6 +299,20 @@ def init_rglru(gen: torch.Generator, d: int, d_rnn: int, dtype) -> State:
         "lam": lam,
         "w_out": _dense_init(gen, (d_rnn, d), d_rnn, dtype),
     }
+
+
+def spec_rglru() -> Dict[str, tuple]:
+    return {
+        "w_in": (None, "tp"), "w_gate": (None, "tp"),
+        "conv": (None, "tp"), "conv_b": ("tp",),
+        "w_r": (None, "tp"), "w_i": (None, "tp"),
+        "b_r": ("tp",), "b_i": ("tp",), "lam": ("tp",),
+        "w_out": ("tp", None),
+    }
+
+
+def spec_rglru_state() -> Dict[str, tuple]:
+    return {"h": ("dp", "tp"), "conv": ("dp", None, "tp")}
 
 
 def rglru_state_shape(batch: int, d_rnn: int

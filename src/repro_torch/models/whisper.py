@@ -28,10 +28,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..config import ResolvedConfig
-from .attention import _proj, attention_apply, init_attention, init_kv_cache
+from .attention import (_proj, attention_apply, init_attention,
+                        init_kv_cache, spec_attention)
 from .layers import (embed_apply, init_embed, init_layernorm, init_mlp2,
                      layernorm_apply, lm_head_apply, mlp2_apply,
-                     sinusoidal_positions)
+                     sinusoidal_positions, spec_embed, spec_layernorm,
+                     spec_mlp2)
 from .model import token_xent
 from .runtime import DTYPES, DeviceLike, resolve_device
 
@@ -88,6 +90,26 @@ class WhisperModel:
             "enc_norm": init_layernorm(d, dev),
             "dec": dec,
             "dec_norm": init_layernorm(d, dev),
+        }
+
+    def param_specs(self) -> Dict[str, Any]:
+        """Logical specs of ``init``'s tree, the JAX package's."""
+        kv_sharded = self.rcfg.padded_kv_heads >= self.rcfg.tp
+        enc = {"norm1": spec_layernorm(),
+               "attn": spec_attention(kv_sharded, False),
+               "norm2": spec_layernorm(), "mlp": spec_mlp2()}
+        dec = {"norm1": spec_layernorm(),
+               "self_attn": spec_attention(kv_sharded, False),
+               "norm2": spec_layernorm(),
+               "cross_attn": spec_attention(True, False),
+               "norm3": spec_layernorm(), "mlp": spec_mlp2()}
+        return {
+            "embed": spec_embed(),
+            "frame_proj": (None, "tp"),
+            "enc": [dict(enc) for _ in range(self.n_enc)],
+            "enc_norm": spec_layernorm(),
+            "dec": [dict(dec) for _ in range(self.n_dec)],
+            "dec_norm": spec_layernorm(),
         }
 
     # ---------------------------------------------------------------- states

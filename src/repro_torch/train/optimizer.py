@@ -2,7 +2,7 @@
 
 The JAX package's optimizer (``init_opt_state`` / ``adamw_update``) over
 the port's parameter trees, without its ZeRO-1 sharding of the moments
-(the port has no mesh yet).  Moments are f32, the update math is f32, and
+(the data-parallel step keeps them replicated).  Moments are f32, the update math is f32, and
 parameters are cast back to their own dtype.  Unlike the reference's pure
 update, ``adamw_update`` writes the new parameters and moments IN PLACE
 (under ``torch.no_grad``), so a step at full width holds one copy of each.

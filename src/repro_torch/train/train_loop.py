@@ -7,12 +7,23 @@ accumulation in f32 when ``accum_steps > 1`` (the reference's
 may hold numpy arrays (the data pipeline's) or tensors; they are moved to
 the model's device.
 
-``compress_pod_grads`` (int8 cross-pod gradient reduction) needs a
-device mesh; without one it changes nothing, as in the JAX package with
-``mesh=None``.  The port has no mesh yet.
+With a device mesh (``distributed.compat``) the step is data-parallel,
+one process a device: every rank passes the GLOBAL batch, takes its
+shard of it over ``("pod", "data")`` (``sharding.batch_pspec``), and
+holds the parameters and moments replicated.  Each rank's loss and
+gradients are mean-reduced over ``data`` in f32 (``dp_reduce_grads``);
+over ``pod`` too, or, with ``compress_pod_grads`` and a pod axis larger
+than 1, through ``collectives.compressed_psum`` leaf by leaf (the
+reference's ``_pod_compressed_grads``: int8 on the slowest hop, its
+error feedback re-derived each step).  Ranks along ``model`` hold the
+same batch shard and compute the same gradients: dense parameters are
+replicated over ``model`` here, where the JAX package lets GSPMD shard
+them by ``param_specs`` (tensor parallelism is not ported).  The model
+itself runs without a mesh (its MoE mesh strategies are forward only).
+With ``mesh=None`` the step is the single-device one.
 
 ``TrainDriver`` is the fault-tolerant loop: periodic async checkpoints,
-restart from the latest, and a heartbeat hook.
+restart from the latest, and a ``distributed.fault.HeartbeatMonitor``.
 """
 from __future__ import annotations
 
@@ -21,7 +32,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.collectives import compressed_psum
+from ..distributed.compat import axis_group, axis_names, mesh_shape
+from ..distributed.sharding import batch_pspec, local_shard
 from ..models.convert import jax_ndims
 from ..tree import leaves, tree_map
 from .optimizer import OptimizerConfig, adamw_update
@@ -52,13 +67,44 @@ def make_loss_fn(model) -> Callable:
     return loss_fn
 
 
+def local_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's shard of a global batch: the leading axis over the
+    mesh's dp axes."""
+    return {k: local_shard(v, batch_pspec(mesh, *([None] * (v.dim() - 1))),
+                           mesh) for k, v in batch.items()}
+
+
+def _mean_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Mean of ``t`` over a mesh axis, in f32, back in t's dtype (at an
+    axis of size 1 that is ``t`` bit for bit)."""
+    n = mesh_shape(mesh)[axis]
+    f = t.to(torch.float32, copy=True)
+    dist.all_reduce(f, group=axis_group(mesh, axis))
+    return (f / n).to(t.dtype)
+
+
+def dp_reduce_grads(grads: Any, mesh, compress_pod: bool = False) -> Any:
+    """Mean of every rank's gradients over the mesh's dp axes: ``data`` in
+    f32, then ``pod`` in f32 or, with ``compress_pod``, through
+    ``compressed_psum`` (int8 payload with error feedback)."""
+    names = axis_names(mesh)
+    if "data" in names:
+        grads = tree_map(lambda g: _mean_over(g, mesh, "data"), grads)
+    if "pod" in names:
+        if compress_pod and mesh_shape(mesh)["pod"] > 1:
+            grads = tree_map(
+                lambda g: compressed_psum(g, mesh, "pod")[0], grads)
+        else:
+            grads = tree_map(lambda g: _mean_over(g, mesh, "pod"), grads)
+    return grads
+
+
 def make_train_step(model, mesh: Optional[Any] = None,
                     tc: TrainConfig = TrainConfig()) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``params`` and the moments are updated in place.
-    ``mesh`` must be None: the port has no device mesh yet."""
-    if mesh is not None:
-        raise NotImplementedError("the port has no device mesh yet")
+    metrics)``; ``params`` and the moments are updated in place.  With a
+    ``mesh`` the step is data-parallel over it (module docstring)."""
     loss_fn = make_loss_fn(model)
     ndims = None
 
@@ -85,7 +131,15 @@ def make_train_step(model, mesh: Optional[Any] = None,
         nonlocal ndims
         if ndims is None:
             ndims = jax_ndims(params, model.rcfg)
-        loss, grads = grads_of(params, batch_to_device(batch, model.device))
+        batch = batch_to_device(batch, model.device)
+        if mesh is not None:
+            batch = local_batch(batch, mesh)
+        loss, grads = grads_of(params, batch)
+        if mesh is not None:
+            grads = dp_reduce_grads(grads, mesh, tc.compress_pod_grads)
+            for a in ("data", "pod"):
+                if a in axis_names(mesh):
+                    loss = _mean_over(loss, mesh, a)
         params, opt_state, metrics = adamw_update(tc.opt, params, grads,
                                                   opt_state, ndims)
         metrics["loss"] = loss
@@ -105,7 +159,7 @@ class TrainDriver:
     step_fn: Callable
     checkpointer: Any = None            # checkpoint.Checkpointer
     ckpt_every: int = 100
-    monitor: Any = None                 # has beat(name, step)
+    monitor: Any = None                 # fault.HeartbeatMonitor
     log_every: int = 10
     log_fn: Callable[[str], None] = print
 

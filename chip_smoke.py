@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --distributed-only    # phase 6's distributed
+                                                # part alone, every card
 
 Phases, each printed as it runs; any failure raises and the script exits
 non-zero without printing a result:
@@ -44,9 +46,14 @@ non-zero without printing a result:
             2048]``: the same at 10 query / 1 KV heads, head_dim 256: flash
             as a 4096-token prefill (B=2) and a 512-query extend at
             ``q_offset`` 3584, decode over a full and a partly filled
-            2048-slot ring.  Then the four entry points again at
-            qwen2-vl-2b's heads (12 / 2, head_dim 128) and phi3.5-moe's
-            (32 / 8, head_dim 128).  ``kernels [whisper-base]``: the dense
+            2048-slot ring.  ``kernels [recurrentgemma f32]``: the
+            decode kernel over an f32 cache at those heads (a full ring
+            and the chunk-edge ``kv_len``; dense, slots, block tables and
+            the log-sum-exp mode; ``f32_decode_kernel_phase``).  Then the
+            four entry points again at qwen2-vl-2b's heads (12 / 2,
+            head_dim 128), phi3.5-moe's (32 / 8, head_dim 128) and
+            dbrx-132b's (48 / 8, head_dim 128: a group of 6, two query
+            heads a decode block).  ``kernels [whisper-base]``: the dense
             flash kernel at whisper's heads (8 / 8, head_dim 64,
             bidirectional): the encoder's 1536 frames, cross-attention of
             1 and of 64 queries over 1536 keys; against the plain version,
@@ -107,7 +114,18 @@ non-zero without printing a result:
             matching, two inflight=1 runs bitwise equal, and the count of
             results that differ at inflight 3 printed (a recycled row
             hands its recurrent state to the next document, as in the
-            reference).
+            reference).  ``models [recurrentgemma-2b f32]``: the model
+            built in f32 (every ring f32): prefill 1024 and 32 decode
+            steps through the f32 head_dim-256 decode kernel against the
+            cacheless forward within ``RG_F32_TOL``.  ``models
+            [dbrx-132b]``: full width cut to 4 of 40 layers (``reduced:
+            num_layers 40 -> 4``), the family check with 32 decode steps
+            after each prefill at the published capacity factor 1.25
+            (held where both sides made the same drop decisions) and at
+            ``DBRX_CHECK_CF`` (no drops, every position held); ``serve
+            [dbrx oracle]``: the llama3.2-1b proxy and the cut dbrx
+            oracle on the paged plane, a warm-up and a drain at inflight
+            1, every document resolved.
 4. build    the paper's construct-and-serve path (Figure 2, steps 1-5) at
             full width: llama3.2-1b proxy, qwen3-1.7b oracle (per-head q/k
             norm), bf16, batch 8, paged plane.  Restructure 28 documents
@@ -147,6 +165,11 @@ non-zero without printing a result:
             step wall and peak memory printed; a ``Checkpointer``
             checkpoint restored bitwise, 2 resumed steps held against 2
             straight ones within twice the spread of two resumed runs.
+            ``train [dbrx-132b]``: two steps of ``launch/specs
+            .build_case("dbrx_132b", "train_4k", mesh)``'s sharded step
+            on a world-1 NCCL mesh, full width cut to 1 layer, batch 1 x
+            4096, ZeRO-1 moments; then the mesh-less optimizer's steps
+            from the same init: losses and every parameter bitwise equal.
             ``distributed``: (a) ``decode_attention_lse`` over four
             32768-key shards of a bf16 cache of 131072 keys at
             llama3.2-1b's heads, merged by the rule of
@@ -166,9 +189,17 @@ non-zero without printing a result:
             its slice of (a)'s cache against (a)'s merged output;
             ``compressed_psum`` of a tensor of llama3.2-1b's parameter
             count (error <= amax / 127); 3 data-parallel steps of
-            full-width llama3.2-1b at batch 2 x 2048 a rank (at n = 1
-            bitwise equal to the mesh-less step; step wall and the
-            gradient all-reduce's share); a ``sp_decode=True`` LM
+            full-width llama3.2-1b at batch 2 x 2048 a rank through each
+            of the port's two data-parallel steps: the replicated one of
+            ``make_train_step(model, mesh)`` (the launcher's; the
+            gradients all-reduced by ``dp_reduce_grads``) and
+            ``build_case``'s train step with ZeRO-1 moments (each at
+            n = 1 bitwise equal to the mesh-less step; step wall and the
+            gradient reduction's share); at n = 1 the bf16 control of
+            the tensor-parallel check (``_tp_control``); at n >= 2 also
+            ep_a2a's gradients against tp_dense's and the tensor-parallel
+            step on a (1, n) mesh against the mesh-less one (loss and
+            every gathered gradient); a ``sp_decode=True`` LM
             (prefill 8192, 32 decode steps) against the mesh-less LM
             within ``FAMILY_LOGIT_TOL``, ``decode_attention_lse``
             launches counted.
@@ -182,7 +213,8 @@ non-zero without printing a result:
 7. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
    the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
    (inflight 1), the families' model checks, moe-oracle and recurrent
-   serving (inflight 1), build, llama3.2-1b training, the distributed
+   serving (inflight 1), the f32 recurrentgemma check, dbrx's model check
+   and serving, build, llama3.2-1b and dbrx training, the distributed
    phase's data-parallel steps and sp-decode LM, and whisper's model
    check and training runs, each counted from zero;
    ``relevance_score`` also carries ``stream_ms``), then the result line
@@ -278,6 +310,39 @@ FAMILY_CUT_WHY = {
                   "(~83 GB) do not fit the card's 80 GB",
 }
 RECURRENTGEMMA_WINDOW = 2048
+# dbrx-132b's depth on one card: a layer holds ~3.26 B parameters (3.17 B
+# of them experts), ~6.5 GB in bf16, so 40 layers are ~263 GB; 4 layers
+# and the 0.62 B-parameter embedding are ~27.3 GB.  Its training step
+# takes one layer: 3.88 B parameters are 7.8 GB of bf16 weights, 7.8 GB
+# of gradients and 31.0 GB of f32 moments.
+DBRX_LAYERS = 4
+DBRX_TRAIN_LAYERS = 1
+DBRX_TRAIN_SEQ = 4096           # train_4k's sequence, batch 1
+DBRX_DECODE = 32
+# dbrx's model check runs twice.  At the published capacity factor 1.25
+# the serve path and the cacheless forward size their expert buffers by
+# their own chunk lengths (the reference's design), so with drops they
+# compute the same function only where they drop the same assignments: a
+# decode step (capacity 1, nothing dropped) never does against a forward
+# that drops the new token's assignments, and only the positions where
+# both sides made the same drop decisions are held (as for phi3.5-moe).
+# At 2.5 a row's expert buffer holds every token (S * top_k * cf * 1.6 /
+# E = S), nothing drops, and every position is held.  The serving cell
+# runs the published 1.25.
+DBRX_CHECK_CF = 2.5
+FAMILY_CUT_WHY["dbrx_132b"] = (
+    "a layer holds ~3.26 B parameters, ~6.5 GB of bf16 weights; the "
+    "published 40 (~263 GB) do not fit the card's 80 GB, 4 and the "
+    "embedding (~27.3 GB) do beside the serving models")
+# recurrentgemma-2b built in f32: its local layers' ring decode runs the
+# decode kernel over an f32 cache at head_dim 256.  Prefill and 32 decode
+# steps against the cacheless forward, both in f32: the RG-LRU step and
+# the scan, and the decode kernel and the flash kernel, sum in other
+# orders, which f32 rounding carries through 26 layers; xlstm's f32
+# decode agrees to ~6e-5 at a logit std of 0.64 after 256 steps, and
+# 1e-3 keeps a margin of more than 10x over that.
+RG_F32_TOL = 1e-3
+RG_F32_PREFILL = 1024
 # the seeded chaos drain of tests/test_torch_faults.py
 CHAOS_SEED = 23
 CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
@@ -1394,15 +1459,17 @@ def _patch_inputs(model, n_img: int, grid: int, text, gen):
     return {"tokens": text, "patch_emb": patches, "positions3": pos3}
 
 
-def family_model_phase(arch, model, params):
+def family_model_phase(arch, model, params, decode_at=(1536, 1537)):
     """``models [families]``: serve-path logits against the cacheless
     forward.  Each case builds caches to position ``n0`` ((a) a prefill
     of 1536 tokens into caches of 2048 positions, (b) a prefill of 1024
     and an extend of 512 at ``q_offset`` 1024, and for qwen2-vl (c) 1024
-    patch embeddings on a 32 x 32 grid and 512 text tokens), then decodes;
-    the path's last logits (position ``n0 - 1``) and the decode steps'
-    logits at 1536 and 1537 are held against the cacheless prefill of the
-    sequence up to the same position, within ``FAMILY_LOGIT_TOL``.
+    patch embeddings on a 32 x 32 grid and 512 text tokens), then decodes
+    up to the last position of ``decode_at``; the path's last logits
+    (position ``n0 - 1``) and the decode steps' logits at the positions
+    of ``decode_at`` (1536 and 1537 unless the caller names others) are
+    held against the cacheless prefill of the sequence up to the same
+    position, within ``FAMILY_LOGIT_TOL``.
 
     xlstm's cacheless forward takes only a multiple of the 256-token mLSTM
     chunk (the reference's assertion), so its bf16 decode is held after a
@@ -1452,7 +1519,8 @@ def family_model_phase(arch, model, params):
             return _patch_inputs(model, 1024, 32, toks[:, :n - 1024], pgen())
         return {"tokens": toks[:, :n]}
 
-    decode_at = () if xlstm else (1536, 1537)
+    if xlstm:
+        decode_at = ()
     cases = [("prefill 1536", False, ((0, 1536),), decode_at, model, params,
               FAMILY_LOGIT_TOL),
              ("prefill 1024 + extend 512", False, ((0, 1024), (1024, 1536)),
@@ -2675,76 +2743,126 @@ def lse_shards_phase(dev, timer):
 
 
 def _dist_train(model, mesh, dev, world):
-    """Mesh-less steps, then the same steps data-parallel from the same
-    init: the losses and params compared, the step walls and the share
-    of the gradient reduction (CUDA events around ``dp_reduce_grads``)."""
+    """Full-width llama3.2-1b through the port's two data-parallel steps,
+    ``DIST_TRAIN_STEPS`` steps each on the same batches, each beside the
+    mesh-less step from the same init with the same configuration:
+
+    * ``dp``: the replicated step of ``make_train_step(model, mesh)`` (the
+      launcher's, ``launch/train.py``): every rank cuts its shard of the
+      global batch (``local_batch``), its gradients all-reduced over
+      ``data`` by ``dp_reduce_grads``, moments replicated; lr 3e-4 from
+      the first step (``warmup_steps=1``), so the parameters move;
+    * ``zero``: the sharded step ``launch/specs.build_case("llama3_2_1b",
+      "train_4k", mesh)`` builds (each rank its own batch shard,
+      ``zero_reduce_grads``, ZeRO-1 moments; AdamW's defaults).
+
+    For each: the losses, at world 1 bitwise equality with the mesh-less
+    step (losses and every updated parameter), from world 2 every rank
+    holding rank 0's parameters, the step walls and the gradient
+    reduction's device time (CUDA events around the reduction)."""
     from repro_torch.data.pipeline import SyntheticLMTask
+    from repro_torch.distributed.sharding import tree_pspecs
+    from repro_torch.launch.specs import build_case, make_model
+    from repro_torch.models.convert import shard_params
     from repro_torch.train import train_loop
-    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.optimizer import OptimizerConfig, \
+        init_opt_state, zero_layout
     from repro_torch.tree import leaves
 
-    tc = train_loop.TrainConfig(opt=OptimizerConfig(
-        lr=3e-4, warmup_steps=1, total_steps=DIST_TRAIN_STEPS))
     task = SyntheticLMTask(vocab_size=model.rcfg.base.vocab_size,
                            seq_len=TRAIN_SEQ)
     batches = [task.batch(0, 0, i, TRAIN_BATCH * world)
                for i in range(DIST_TRAIN_STEPS)]
 
-    def run(step_mesh):
-        params = model.init(seed=3)
-        opt = init_opt_state(params)
-        step = train_loop.make_train_step(model, step_mesh, tc)
+    def run(step, params, opt, shard=lambda b: b):
         losses, walls = [], []
         for b in batches:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, opt, m = step(params, opt, b)
-            losses.append(float(m["loss"]))
+            params, opt, met = step(params, opt, shard(b))
+            losses.append(float(met["loss"]))
             walls.append(time.perf_counter() - t0)
         del opt
         return params, losses, walls
 
-    ref = None
-    if world == 1:
-        ref = run(None)
-    spans, orig = [], train_loop.dp_reduce_grads
+    def timed_run(reduction, *args):
+        """``run`` with CUDA events around ``train_loop.<reduction>``;
+        (params, losses, walls, reduction ms, launches)."""
+        spans, orig = [], getattr(train_loop, reduction)
 
-    def timed(*a, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = orig(*a, **kw)
-        e1.record()
-        spans.append((e0, e1))
-        return out
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*a, **kw)
+            e1.record()
+            spans.append((e0, e1))
+            return out
 
-    train_loop.dp_reduce_grads = timed
-    try:
-        _zero_counts()
-        params, losses, walls = run(mesh)
-        counts = _counts()
-    finally:
-        train_loop.dp_reduce_grads = orig
-    torch.cuda.synchronize()
-    red_ms = [a.elapsed_time(b) for a, b in spans]
-    n_params = sum(t.numel() for t in leaves(params))
-    res = dict(losses=losses, wall_ms=[w * 1e3 for w in walls],
-               reduce_ms=red_ms, n_params=n_params, counts=counts)
-    if world > 1:
-        # every rank must hold rank 0's parameters bit for bit
-        import torch.distributed as dist
-        same = True
-        for t in leaves(params):
-            rank0 = t.clone()
-            dist.broadcast(rank0, src=0)
-            same &= torch.equal(rank0, t)
-        res["replicated"] = same
-    if ref is not None:
-        res["bitwise"] = ref[1] == losses and all(
-            torch.equal(a, b) for a, b in zip(leaves(ref[0]),
-                                              leaves(params)))
-        res["ref_losses"] = ref[1]
-    return res
+        setattr(train_loop, reduction, timed)
+        try:
+            _zero_counts()
+            out = run(*args)
+            counts = _counts()
+        finally:
+            setattr(train_loop, reduction, orig)
+        torch.cuda.synchronize()
+        return (*out, [a.elapsed_time(b) for a, b in spans], counts)
+
+    def summary(tc, got, start):
+        params, losses, walls, red_ms, counts = got
+        res = dict(losses=losses, wall_ms=[w * 1e3 for w in walls],
+                   reduce_ms=red_ms, counts=counts,
+                   n_params=sum(t.numel() for t in leaves(params)))
+        if world > 1:
+            # every rank must hold rank 0's parameters bit for bit
+            import torch.distributed as dist
+            same = True
+            for t in leaves(params):
+                rank0 = t.clone()
+                dist.broadcast(rank0, src=0)
+                same &= torch.equal(rank0, t)
+            res["replicated"] = same
+        else:
+            p = start()
+            ref, ref_losses, _ = run(train_loop.make_train_step(
+                model, None, tc), p, init_opt_state(p))
+            res["bitwise"] = ref_losses == losses and all(
+                torch.equal(a, b) for a, b in zip(leaves(ref),
+                                                  leaves(params)))
+            res["ref_losses"] = ref_losses
+        return res
+
+    # (1) the replicated data-parallel step
+    tc = train_loop.TrainConfig(opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=1, total_steps=DIST_TRAIN_STEPS))
+    p = model.init(seed=3)
+    got = timed_run("dp_reduce_grads",
+                    train_loop.make_train_step(model, mesh, tc), p,
+                    init_opt_state(p))
+    del p
+    dp = summary(tc, got, lambda: model.init(seed=3))
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (2) build_case's sharded step, ZeRO-1 moments
+    case = build_case("llama3_2_1b", "train_4k", mesh, device=dev)
+    sharded, _ = make_model("llama3_2_1b", mesh, "train_4k", device=dev)
+    p = shard_params(model.init(seed=3), sharded, mesh)
+    opt = init_opt_state(p, zero_layout(
+        p, tree_pspecs(sharded.param_specs(), mesh), mesh))
+    assert [tuple(t.shape) for t in leaves((p, opt))] == \
+        [tuple(t.shape) for t in leaves(case.args[:2])], "meta shapes"
+    got = timed_run("zero_reduce_grads", case.fn, p, opt,
+                    lambda b: train_loop.local_batch(
+                        train_loop.batch_to_device(b, dev), mesh))
+    del p, opt
+    zero = summary(train_loop.TrainConfig(compress_pod_grads=False), got,
+                   lambda: model.init(seed=3))
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dp=dp, zero=zero, n_params=dp["n_params"])
 
 
 def _dist_multi(rank, world, dev, mesh):
@@ -2810,6 +2928,8 @@ def _dist_multi(rank, world, dev, mesh):
     res["aux_err"] = max(abs(float(aux_e - aux_d)),
                          abs(float(aux_t - aux_dt)))
     assert max(res["ep_err"], res["tp_err"], res["aux_err"]) <= 1e-4, res
+    res.update(_dist_moe_grads(rank, world, dev, mesh, params, per_rank))
+    res.update(_dist_tp_step(rank, world, dev))
     # the pod hop
     if world >= 4 and world % 2 == 0:
         pod = make_mesh((2, world // 2, 1), ("pod", "data", "model"), "cuda")
@@ -2823,6 +2943,166 @@ def _dist_multi(rank, world, dev, mesh):
             ratio = max(ratio, max_err(full[k], comp[k]) / float(amax))
         res["pod_ratio"] = ratio
         assert ratio <= 1 / 127, res
+    return res
+
+
+# The tensor-parallel check (world >= 2): one step of the tensor-parallel
+# step against the mesh-less step from the same init, both bf16.  The
+# sharded layers sum bf16 partial products over the model ranks where the
+# mesh-less products accumulate in f32 and round once, so the two differ
+# by bf16 rounding through the layers.  Held: the loss, and every
+# gradient the step hands to AdamW (gathered), relative to the leaf's
+# peak; a zero or wrong gradient is off by ~1 of its peak.  Each bound
+# lies between the tensor-parallel step's reading and that of the bf16
+# control, the same mesh-less step built in f32 from the same
+# (bf16-valued) weights against the bf16 one (``_tp_control``, printed
+# at every world).  On four H100s at these shapes: loss 4.0e-5 (control
+# 5.5e-4), gradients 0.042 of the peak (control 0.105), both worst at the
+# tied embedding's table, which sums bf16 products over every token.
+DIST_TP_LAYERS = 2
+DIST_TP_LOSS_TOL = 2 ** -12
+DIST_TP_GRAD_REL = 2 ** -4
+
+
+def _dist_moe_grads(rank, world, dev, mesh, params, per_rank):
+    """``ep_a2a``'s input and weight gradients (each rank its experts'
+    slices, ``sharded=True``) against ``tp_dense``'s on the full weights,
+    summed over the ranks and cut to the same slices, f32."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import local_shard, \
+        logical_to_pspec
+    from repro_torch.models import moe
+
+    kw = dict(top_k=2, capacity_factor=8.0)
+    x = 0.5 * per_rank(world + 5 + rank, 2, 64, 256)
+    ct = per_rank(world + 20 + rank, 2, 64, 256)
+    spec = moe.spec_moe("ep_a2a")
+    pspecs = {k: logical_to_pspec(spec[k], mesh) for k in params}
+    full = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xf = x.clone().requires_grad_(True)
+    y, _ = moe.moe_apply_tp_dense(full, xf, **kw)
+    g_full = torch.autograd.grad((y * ct).sum(), [*full.values(), xf])
+    loc = {k: local_shard(v, pspecs[k], mesh).requires_grad_(True)
+           for k, v in params.items()}
+    xl = x.clone().requires_grad_(True)
+    y, _ = moe.moe_apply_ep_a2a(loc, xl, mesh=mesh, sharded=True, **kw)
+    g_ep = torch.autograd.grad((y * ct).sum(), [*loc.values(), xl])
+    err = max_err(g_ep[-1], g_full[-1])
+    for k, ge, gf in zip(params, g_ep, g_full):
+        dist.all_reduce(gf)                  # every rank's tokens
+        if k == "router":
+            dist.all_reduce(ge)              # replicated over data
+        err = max(err, max_err(ge, local_shard(gf, pspecs[k], mesh)) /
+                  max(float(gf.abs().max()), 1e-30))
+    assert err <= 1e-4, err
+    return {"ep_grad_err": err}
+
+
+def _step_grads(step, params, opt, batch):
+    """One ``step``: (loss, the gradients it hands to ``adamw_update``,
+    cloned, as the rank holds them)."""
+    from repro_torch.train import train_loop
+    from repro_torch.tree import tree_map
+
+    seen, orig = [], train_loop.adamw_update
+
+    def spy(cfg, params, grads, *a, **kw):
+        seen.append(tree_map(torch.clone, grads))
+        return orig(cfg, params, grads, *a, **kw)
+
+    train_loop.adamw_update = spy
+    try:
+        _, _, met = step(params, opt, batch)
+    finally:
+        train_loop.adamw_update = orig
+    return float(met["loss"]), seen[0]
+
+
+def _leaf_rel(got, want):
+    """(the largest error over leaves, each relative to want's peak, the
+    path of that leaf in ``want``)."""
+    from repro_torch.tree import leaves, leaves_with_paths
+    return max((max_err(a, b) / max(float(b.float().abs().max()), 1e-30), k)
+               for a, (k, b) in zip(leaves(got), leaves_with_paths(want)))
+
+
+def _tp_control(dev, world):
+    """The tensor-parallel check's inputs and its bf16 control: full-width
+    llama3.2-1b resolved at ``tp`` = ``world`` and cut to
+    ``DIST_TP_LAYERS`` layers, batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``; the
+    mesh-less bf16 step's loss and gradients, and the same step built in
+    f32 from the same weights.  Returns (rcfg, init, batch, (loss,
+    grads) of bf16, control: {loss: |bf16 - f32|, grad_rel: the largest
+    gradient error of a leaf over its f32 peak})."""
+    import dataclasses
+
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMTask
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    cfg = get_config("llama3_2_1b")
+    cfg = dataclasses.replace(cfg, num_layers=DIST_TP_LAYERS)
+    rcfg = resolve(cfg, tp=world)
+    batch = SyntheticLMTask(cfg.vocab_size, TRAIN_SEQ).batch(
+        0, 0, 0, TRAIN_BATCH)
+    tc = TrainConfig(compress_pod_grads=False)
+    plain = LM(rcfg, device=dev)
+    init = lambda: plain.init(seed=9)                        # noqa: E731
+    p = init()
+    bf16 = _step_grads(make_train_step(plain, None, tc), p,
+                       init_opt_state(p), batch)
+    m32 = LM(resolve(dataclasses.replace(cfg, dtype="float32"), tp=world),
+             device=dev)
+    p = _map_tensors(init(), lambda t: t.float())
+    f32 = _step_grads(make_train_step(m32, None, tc), p, init_opt_state(p),
+                      batch)
+    del p
+    rel, worst = _leaf_rel(bf16[1], f32[1])
+    control = {"loss": abs(bf16[0] - f32[0]), "grad_rel": rel,
+               "grad_worst": worst}
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rcfg, init, batch, bf16, control
+
+
+def _dist_tp_step(rank, world, dev):
+    """One step of the tensor-parallel step ``build_case`` gives on a (1,
+    world) mesh (``_tp_control``'s model and batch) against the mesh-less
+    bf16 step from the same init: the loss within ``DIST_TP_LOSS_TOL``,
+    every gradient handed to AdamW, gathered, within ``DIST_TP_GRAD_REL``
+    of its peak; the bf16 control's readings beside them."""
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import gather_full, tree_pspecs
+    from repro_torch.launch.specs import build_case, make_model
+    from repro_torch.models.convert import shard_params
+    from repro_torch.train.optimizer import init_opt_state, zero_layout
+    from repro_torch.tree import leaves
+
+    rcfg, init, batch, (loss0, grads0), control = _tp_control(dev, world)
+    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    case = build_case("llama3_2_1b", "train_4k", mesh, DIST_TP_LAYERS,
+                      device=dev)
+    model, rcfg_tp = make_model("llama3_2_1b", mesh, "train_4k",
+                                DIST_TP_LAYERS, device=dev)
+    assert rcfg_tp == rcfg, "the two sides resolve alike"
+    p = shard_params(init(), model, mesh)
+    layout = zero_layout(p, tree_pspecs(model.param_specs(), mesh), mesh)
+    loss, grads = _step_grads(case.fn, p, init_opt_state(p, layout), batch)
+    gathered = [gather_full(g, zl.zspec if zl.dim is not None else zl.spec,
+                            mesh) for g, zl in zip(leaves(grads),
+                                                   layout.leaves)]
+    rel, worst = _leaf_rel(gathered, grads0)
+    res = {"tp_loss": loss, "tp_loss_err": abs(loss - loss0),
+           "tp_grad_rel": rel, "tp_grad_worst": worst,
+           "tp_control_loss": control["loss"],
+           "tp_control_grad_rel": control["grad_rel"],
+           "tp_control_grad_worst": control["grad_worst"]}
+    assert res["tp_loss_err"] <= DIST_TP_LOSS_TOL and \
+        res["tp_grad_rel"] <= DIST_TP_GRAD_REL, res
     return res
 
 
@@ -2869,6 +3149,10 @@ def _dist_rank(rank, world, out_dir, merged_path):
     del q, k, v, kl_, vl_
     if world >= 2:
         res["multi"] = _dist_multi(rank, world, dev, mesh)
+    else:
+        res["tp_control"] = _tp_control(dev, 1)[-1]
+        gc.collect()
+        torch.cuda.empty_cache()
     # (2) data-parallel training of full-width llama3.2-1b
     model = LM(resolve(get_config("llama3_2_1b"), tp=1), device=dev)
     res["train"] = _dist_train(model, mesh, dev, world)
@@ -2947,12 +3231,13 @@ def distributed_phase(dev, timer):
     visible card on a (world, 1) data x model mesh, each running
     ``_dist_rank``: sequence-parallel decode over (a)'s cache against
     (a)'s merged output, ``compressed_psum`` of a tensor of llama3.2-1b's
-    parameter count, ``DIST_TRAIN_STEPS`` data-parallel steps of
-    full-width llama3.2-1b (batch 2 x 2048 a rank; at world 1 bitwise
-    equal to the mesh-less step), and a ``sp_decode=True`` LM (prefill
-    8192 tokens, 32 decode steps) against the mesh-less LM within
-    ``FAMILY_LOGIT_TOL``.  Returns (the LSE row, [launch counts of the
-    data-parallel steps and of the sp-decode LM])."""
+    parameter count, ``DIST_TRAIN_STEPS`` steps of full-width llama3.2-1b
+    through each of the two data-parallel steps (``_dist_train``; batch 2
+    x 2048 a rank; at world 1 bitwise equal to the mesh-less step), and
+    a ``sp_decode=True`` LM (prefill 8192 tokens, 32 decode steps)
+    against the mesh-less LM within ``FAMILY_LOGIT_TOL``.  Returns (the
+    LSE row, [launch counts of the two data-parallel runs and of the
+    sp-decode LM])."""
     import shutil
     import tempfile
 
@@ -2964,8 +3249,10 @@ def distributed_phase(dev, timer):
     if world < 2:
         print("distributed: not run at this world (they need 2 ranks or "
               "more): ring_all_gather, ring_reduce_scatter, "
-              "matmul_ag_overlap, MoE ep_a2a and tp_smap, the pod hop of "
-              "compressed_psum; the CPU tests hold them on 8 gloo ranks")
+              "matmul_ag_overlap, MoE ep_a2a and tp_smap and ep_a2a's "
+              "gradients, the tensor-parallel step (model > 1), the pod "
+              "hop of compressed_psum; the CPU tests hold them on 8 gloo "
+              "ranks")
     elif world < 4 or world % 2:
         print("distributed: not run at this world (it needs an even world "
               "of 4 ranks or more): the pod hop of compressed_psum")
@@ -2991,10 +3278,31 @@ def distributed_phase(dev, timer):
               f"max_abs_err "
               f"{mu['matmul_ag_err']:.3g} (tol 1e-3); MoE ep_a2a / tp_smap "
               f"against tp_dense at capacity 8: {mu['ep_err']:.3g} / "
-              f"{mu['tp_err']:.3g}, aux {mu['aux_err']:.3g} (tol 1e-4)"
+              f"{mu['tp_err']:.3g}, aux {mu['aux_err']:.3g} (tol 1e-4); "
+              f"ep_a2a gradients against tp_dense's {mu['ep_grad_err']:.3g} "
+              f"of their peaks (tol 1e-4); the tensor-parallel step "
+              f"(model = {world}, llama3.2-1b cut to {DIST_TP_LAYERS} "
+              f"layers, bf16) against the mesh-less step: loss "
+              f"{mu['tp_loss']:.4f} within {mu['tp_loss_err']:.3g} (tol "
+              f"{DIST_TP_LOSS_TOL:.3g}; the bf16 control "
+              f"{mu['tp_control_loss']:.3g}), gradients within "
+              f"{mu['tp_grad_rel']:.3g} of their peaks (at "
+              f"{mu['tp_grad_worst']}; tol {DIST_TP_GRAD_REL:.3g}; the bf16 "
+              f"control {mu['tp_control_grad_rel']:.3g}, at "
+              f"{mu['tp_control_grad_worst']})"
               + (f"; int8 pod hop within {mu['pod_ratio']:.4g} x amax of "
                  f"full precision (bound 1/127)" if "pod_ratio" in mu
                  else ""))
+    if "tp_control" in res:
+        c = res["tp_control"]
+        print(f"distributed [tp control, llama3.2-1b cut to "
+              f"{DIST_TP_LAYERS} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}]: "
+              f"the mesh-less bf16 step against the same step in f32: loss "
+              f"{c['loss']:.3g} apart, gradients {c['grad_rel']:.3g} of their "
+              f"peaks (at {c['grad_worst']}; the tensor-parallel check's "
+              f"bounds, loss {DIST_TP_LOSS_TOL:.3g} and gradients "
+              f"{DIST_TP_GRAD_REL:.3g}, lie below these; the check itself "
+              f"needs 2 cards)")
     sp = res["sp"]
     print(f"distributed [sp decode, NCCL world {world}, {DIST_S} keys]: "
           f"against (a)'s merged output at kv_len {list(DIST_LENS)}: "
@@ -3006,22 +3314,32 @@ def distributed_phase(dev, timer):
           f"{sp['bitwise_whole']}; {sp['ms']:.4f} ms a call (the kernel "
           f"and two all-reduces)")
     tr = res["train"]
-    red = tr["reduce_ms"]
-    share = [100 * a / b for a, b in zip(red, tr["wall_ms"])]
-    print(f"distributed [train, llama3.2-1b, {DIST_TRAIN_STEPS} "
-          f"data-parallel steps, batch {TRAIN_BATCH} x {TRAIN_SEQ} a rank]: "
-          f"losses {[round(x, 4) for x in tr['losses']]}"
-          + (f", bitwise equal to the mesh-less step (losses and every "
-             f"updated param): {tr['bitwise']}" if "bitwise" in tr else "")
-          + f"; step wall {[round(w, 1) for w in tr['wall_ms']]} ms, "
-          f"gradient all-reduce {[round(r, 1) for r in red]} ms device "
-          f"({[round(x, 1) for x in share]}% of the step)")
-    if "bitwise" in tr:
-        assert tr["bitwise"], "data-parallel step at world 1 != mesh-less"
-    if "replicated" in tr:
-        print(f"distributed [train]: parameters after the steps bitwise "
-              f"equal on every rank: {tr['replicated']}")
-        assert tr["replicated"], "data-parallel ranks diverged"
+    for key, what, reduction in (
+            ("dp", "replicated moments, make_train_step(model, mesh)",
+             "dp_reduce_grads"),
+            ("zero", "build_case's step, ZeRO-1 moments",
+             "zero_reduce_grads")):
+        t = tr[key]
+        red = t["reduce_ms"]
+        share = [100 * a / b for a, b in zip(red, t["wall_ms"])]
+        print(f"distributed [train, llama3.2-1b, {DIST_TRAIN_STEPS} "
+              f"data-parallel steps ({what}), batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} a rank]: losses "
+              f"{[round(x, 4) for x in t['losses']]}"
+              + (f", bitwise equal to the mesh-less step (losses and every "
+                 f"updated param): {t['bitwise']}" if "bitwise" in t else "")
+              + f"; step wall {[round(w, 1) for w in t['wall_ms']]} ms, "
+              f"gradient reduction ({reduction}) "
+              f"{[round(r, 2) for r in red]} ms device "
+              f"({[round(x, 2) for x in share]}% of the step); launches "
+              f"{ {k: v for k, v in t['counts'].items() if v} }")
+        if "bitwise" in t:
+            assert t["bitwise"], f"{key} step at world 1 != mesh-less"
+        if "replicated" in t:
+            print(f"distributed [train, {key}]: parameters after the steps "
+                  f"bitwise equal on every rank: {t['replicated']}")
+            assert t["replicated"], f"{key}: data-parallel ranks diverged"
+        assert t["counts"]["flash_attention"] > 0, (key, t["counts"])
     cp = res["cpsum"]
     print(f"distributed [compressed_psum, {cp['n'] / 1e9:.3f} B f32 "
           f"elements]: {cp['ms']:.1f} ms; max |value - input| "
@@ -3036,7 +3354,309 @@ def distributed_phase(dev, timer):
           f"{lm['bitwise']}), wall {lm['wall_s']:.2f} s, launches "
           f"{ {k: v for k, v in lm['counts'].items() if v} }")
     assert lm["counts"]["decode_attention_lse"] > 0
-    return row, [tr["counts"], lm["counts"]]
+    return row, [tr["dp"]["counts"], tr["zero"]["counts"], lm["counts"]]
+
+
+def f32_decode_kernel_phase(dev, timer):
+    """``kernels [recurrentgemma f32]``: the decode kernel over an f32
+    cache at recurrentgemma-2b's heads (10 query / 1 KV, head_dim 256: a
+    key's row is 64 16-byte pieces, two a lane).  A 2048-slot ring at
+    B = 8 held in an arena: the full ring and the chunk-edge ``kv_len``
+    set, through the dense entry, slots and block tables (normal mode)
+    and the dense log-sum-exp mode; each against its plain version within
+    ``DECODE_TOL``, two calls bitwise, paged == dense bitwise and the LSE
+    mode's ``acc / l`` bitwise the normal mode's output.  The full ring
+    timed beside SDPA over the same masked f32 cache, the plain version
+    and the bound (bytes over 3.35 TB/s; its f32 operations over 67
+    TFLOP/s).  Returns the rows (dense and LSE over the full ring)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, Dh, S, B = 10, 1, 256, RECURRENTGEMMA_WINDOW, 8
+    N, tb = B + 3, 256
+    g = torch.Generator(device=dev).manual_seed(17)
+    ka = torch.randn((N, S, Hkv, Dh), generator=g, device=dev)
+    va = torch.randn((N, S, Hkv, Dh), generator=g, device=dev)
+    q = torch.randn((B, Hq, Dh), generator=g, device=dev)
+    slots = torch.tensor([3, 0, 7, 9, 1, 5, 8, 2], dtype=torch.int32,
+                         device=dev)
+    bt = slots[:, None].repeat(1, S // tb)
+    bt[:5, 0] = N - 2                   # a shared leading block
+    kg, vg = ka[slots.long()], va[slots.long()]
+    kt, vt = (ops._gather_block_rows(a, bt, tb) for a in (ka, va))
+    C = dec.KV_CHUNK
+    rows, label = [], "recurrentgemma-2b shapes, f32 cache, head_dim 256"
+    for case, kl in ((f"full ring, kv_valid {S}", [S] * B),
+                     ("chunk-edge kv_len", [0, 1, C - 1, C, C + 1, 2 * C, S,
+                                            S + 5])):
+        kv_len = torch.tensor(kl, dtype=torch.int32, device=dev)
+        dense = ops.decode_attention(q, kg, vg, kv_len)
+        plain = dec.decode_attention_plain(q, kg, vg, kv_len)
+        torch.testing.assert_close(dense, plain, **DECODE_TOL)
+        paged = ops.arena_decode_attention(q, ka, va, slots, kv_len)
+        p_plain = dec.paged_decode_attention_plain(q, ka, va, slots, kv_len)
+        torch.testing.assert_close(paged, p_plain, **DECODE_TOL)
+        tabled = ops.arena_decode_attention(q, ka, va, slots, kv_len,
+                                            block_tables=bt)
+        t_plain = dec.paged_decode_attention_plain(
+            q, ka, va, slots, kv_len, block_tables=bt, table_block=tb)
+        torch.testing.assert_close(tabled, t_plain, **DECODE_TOL)
+        lse = ops.decode_attention_lse(q, kg, vg, kv_len)
+        l_plain = dec.decode_attention_lse_plain(q, kg, vg, kv_len)
+        live = ~torch.isneginf(l_plain[..., -1])
+        assert torch.equal(torch.isneginf(lse[..., -1]), ~live), case
+        l_ref = l_plain[..., -2].clamp_min(1e-30)
+        torch.testing.assert_close(lse[..., :Dh] / l_ref[..., None],
+                                   l_plain[..., :Dh] / l_ref[..., None],
+                                   **DECODE_TOL)
+        lse_err = max(float((lse[..., -1] - l_plain[..., -1])[live].abs()
+                            .max()) if live.any() else 0.0,
+                      float(((lse[..., -2] - l_plain[..., -2]).abs()
+                             / l_ref).max()))
+        assert lse_err <= 1e-5, (case, lse_err)
+        assert torch.equal(paged, dense) and torch.equal(
+            tabled, ops.decode_attention(q, kt, vt, kv_len)), \
+            f"{case}: paged != dense"
+        assert torch.equal(ops.decode_attention(q, kg, vg, kv_len), dense) \
+            and torch.equal(ops.arena_decode_attention(
+                q, ka, va, slots, kv_len, block_tables=bt), tabled) \
+            and torch.equal(ops.decode_attention_lse(q, kg, vg, kv_len),
+                            lse), f"{case}: two calls differ"
+        norm = lse[..., :Dh] / lse[..., Dh:Dh + 1].clamp_min(1e-30)
+        assert torch.equal(norm, dense), f"{case}: LSE acc / l != normal"
+        err = max(max_err(dense, plain), max_err(paged, p_plain),
+                  max_err(tabled, t_plain))
+        print(f"kernels [{label}, {case}]: dense, slots and block tables "
+              f"within DECODE_TOL of the plain versions (max_abs_err "
+              f"{err:.3g}); LSE m and l within {lse_err:.3g}; two calls, "
+              f"paged == dense and the LSE mode's acc / l == normal "
+              f"bitwise")
+        if case.startswith("full"):
+            keys = float(sum(kl))
+            b_ms, b_by = bound(keys * Hkv * Dh * 4 * 2 + 2 * q.numel() * 4
+                               + 4 * B, 4.0 * Hq * Dh * keys, PEAK_F32_FLOPS)
+            mask = sdpa_mask(kv_len, 1, S, 0, False, dev)
+            qs, ks, vs = q[:, :, None], kg.transpose(1, 2), vg.transpose(1, 2)
+            sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            for name, fn, pfn, e in (
+                    ("decode_attention",
+                     lambda: ops.decode_attention(q, kg, vg, kv_len),
+                     lambda: dec.decode_attention_plain(q, kg, vg, kv_len),
+                     max_err(dense, plain)),
+                    ("decode_attention_lse",
+                     lambda: ops.decode_attention_lse(q, kg, vg, kv_len),
+                     lambda: dec.decode_attention_lse_plain(q, kg, vg,
+                                                            kv_len),
+                     lse_err)):
+                r = dict(name=name, case=case, max_abs_err=e,
+                         ms=timer.ms(fn), plain_ms=timer.ms(pfn),
+                         library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
+                rows.append(r)
+                print(f"kernel {name} [{label}, {case}]: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                      f"(mask) {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by})")
+    return rows
+
+
+def recurrentgemma_f32_phase():
+    """``models [recurrentgemma-2b f32]``: full width and depth built at
+    ``dtype="float32"`` (random weights, seed 2), so every attention cache
+    is f32: a prefill of ``RG_F32_PREFILL`` tokens into rings of 2048
+    slots, then ``DBRX_DECODE`` decode steps through the f32 head_dim-256
+    decode kernel; the prefill's last logits, the first and the last
+    step's held against the cacheless forward within ``RG_F32_TOL``.
+    Returns the kernel launches."""
+    import dataclasses
+
+    from repro_torch.config import resolve
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b"),
+                              dtype="float32")
+    model = LM(resolve(cfg, tp=1), device="cuda")
+    params = model.init(seed=2)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"models [recurrentgemma-2b f32]: full width ({cfg.num_layers} "
+          f"layers), f32, {n_bytes / 1e9:.2f} GB of random weights (seed 2)")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n0, steps = RG_F32_PREFILL, DBRX_DECODE
+    toks = torch.randint(16, cfg.vocab_size, (2, n0 + steps), generator=g,
+                         device="cuda")
+    errs = []
+    _zero_counts()
+    with torch.no_grad():
+        last, st = model.prefill(params, {"tokens": toks[:, :n0]},
+                                 s_alloc=2 * RECURRENTGEMMA_WINDOW)
+        assert st[2]["k"].dtype == torch.float32, "the ring is not f32"
+        checks = [(n0, last)]
+        for i in range(steps):
+            pos = torch.full((2,), n0 + i, dtype=torch.int32, device="cuda")
+            lg, st = model.decode_step(params, toks[:, n0 + i], st, pos)
+            if i in (0, steps - 1):
+                checks.append((n0 + i + 1, lg))
+        counts = _counts()
+        for n, lg in checks:
+            ref = model.prefill(params, {"tokens": toks[:, :n]})[0]
+            err = max_err(lg, ref)
+            errs.append(err)
+            print(f"models [recurrentgemma-2b f32, logits at position "
+                  f"{n - 1}]: max |logit - full forward| {err:.4g} (logit "
+                  f"std {float(ref.std()):.4g}; tol {RG_F32_TOL:g})")
+            assert torch.isfinite(lg).all() and err <= RG_F32_TOL, (n, err)
+    assert counts["decode_attention"] > 0, counts
+    print(f"models [recurrentgemma-2b f32]: prefill {n0} + {steps} decode "
+          f"steps within {max(errs):.4g} of the cacheless forward; kernel "
+          f"launches {json.dumps(counts)}")
+    return counts
+
+
+def dbrx_phase(models, params, docs):
+    """``models [dbrx-132b]`` and ``serve [dbrx oracle]``: full width
+    (d_model 6144, 48 / 8 heads, head_dim 128, 16 experts top-4 at d_ff
+    10752, vocab 100352) cut to ``DBRX_LAYERS`` layers (random bf16
+    weights, seed 3): ``family_model_phase`` with ``DBRX_DECODE`` decode
+    steps after each prefill, at the published capacity factor (held
+    where the drop decisions agree) and at ``DBRX_CHECK_CF`` (every
+    position held); then a two-stage cascade (the two tenant
+    queries) over the serving corpus with the full-width llama3.2-1b
+    proxy and the cut dbrx as the oracle, paged plane, a warm-up and a
+    drain at inflight 1.  Returns the launches of both."""
+    import dataclasses
+
+    from repro_torch.models.model import LM
+
+    ms = family_models((("dbrx_132b", 3, DBRX_LAYERS),))
+    model, p = ms["dbrx_132b"]
+    b = model.rcfg.base
+    decode_at = (1536, 1536 + DBRX_DECODE - 1)
+    print(f"models [families, dbrx-132b]: the model check at the published "
+          f"capacity factor {b.moe.capacity_factor}: held where both sides "
+          f"made the same drop decisions")
+    published = family_model_phase("dbrx_132b", model, p, decode_at)
+    check = LM(dataclasses.replace(model.rcfg, base=dataclasses.replace(
+        b, moe=dataclasses.replace(b.moe, capacity_factor=DBRX_CHECK_CF))),
+               device="cuda")
+    print(f"models [families, dbrx-132b]: the model check at capacity "
+          f"factor {DBRX_CHECK_CF} (published {b.moe.capacity_factor}): "
+          f"every row's expert buffer holds every token, nothing drops")
+    counts = family_model_phase("dbrx_132b", check, p, decode_at)
+    counts = {k: v + published[k] for k, v in counts.items()}
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    pair = {"proxy": models["proxy"], "oracle": model}
+    weights = {"proxy": params["proxy"], "oracle": p}
+    vocab = min(m.rcfg.base.vocab_size for m in pair.values())
+    for run in ("warm-up", "inflight=1"):
+        srv = make_server(pair, weights, inflight=1, vocab=vocab)
+        assert all(be.uses_paged_kv() for be in srv.backends.values())
+        results, serve_counts, wall = drive(srv, tenant_cascades(), docs)
+        assert_resolved(results, docs)
+        check_launches(srv, serve_counts)
+        n = sum(len(r.status) for r in results.values())
+        p50, p99 = latency_ms(results)
+        exits = [list(r.exit_stage.values()) for r in results.values()]
+        print(f"serve [dbrx oracle, {run}]: llama3.2-1b proxy, dbrx-132b "
+              f"({DBRX_LAYERS} layers) oracle: {n} docs terminal and "
+              f"RESOLVED (every document resolved: True) in {wall:.3f} s "
+              f"({n / wall:.2f} docs/s), {srv.stats().batches} launches, "
+              f"latency p50 {p50:.1f} ms p99 {p99:.1f} ms, exit stages "
+              f"{[[e.count(s) for s in range(3)] for e in exits]}, kernel "
+              f"launches {json.dumps(serve_counts)}")
+    return counts, serve_counts
+
+
+def train_dbrx_phase():
+    """``train [dbrx-132b]``: two steps of the sharded train step that
+    ``launch/specs.build_case("dbrx_132b", "train_4k", mesh,
+    n_rep_override=1)`` builds, on a world-1 NCCL mesh (data 1, model 1),
+    at full width cut to ``DBRX_TRAIN_LAYERS`` layer, batch 1 x
+    ``DBRX_TRAIN_SEQ`` of ``SyntheticLMTask`` (the MoE runs ``tp_dense``,
+    the reference's dispatch at data 1), ZeRO-1 moments; then the same
+    steps with the mesh-less optimizer from the same init: the losses and
+    every updated parameter bitwise equal (ZeRO-1 over one rank is the
+    identity).  Prints the losses, the second step's wall and the peak
+    memory.
+    Returns the launches of the sharded step."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticLMTask
+    from repro_torch.distributed.compat import init_world, make_mesh
+    from repro_torch.distributed.sharding import tree_pspecs
+    from repro_torch.launch.specs import build_case, make_model
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import init_opt_state, zero_layout
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    init_world("cuda", init_method=f"tcp://127.0.0.1:{_free_port()}",
+               rank=0, world_size=1, timeout_s=DIST_TIMEOUT_S)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        case = build_case("dbrx_132b", "train_4k", mesh,
+                          n_rep_override=DBRX_TRAIN_LAYERS)
+        model, rcfg = make_model("dbrx_132b", mesh, "train_4k",
+                                 DBRX_TRAIN_LAYERS)
+        b = rcfg.base
+        batch = SyntheticLMTask(b.vocab_size, DBRX_TRAIN_SEQ).batch(0, 0, 0,
+                                                                    1)
+
+        def two_steps(step, params, opt):
+            """Two steps on the batch; the second's wall and the peak."""
+            params, opt, met = step(params, opt, batch)
+            loss0 = float(met["loss"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+            return params, (loss0, float(met["loss"])), \
+                time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+        params = shard_params(model.init(seed=4), model, mesh)
+        n = sum(t.numel() for t in leaves(params))
+        layout = zero_layout(params, tree_pspecs(model.param_specs(), mesh),
+                             mesh)
+        opt = init_opt_state(params, layout)
+        assert [tuple(t.shape) for t in leaves((params, opt))] == \
+            [tuple(t.shape) for t in leaves(case.args[:2])]
+        print(f"train [dbrx-132b]: build_case(dbrx_132b, train_4k, NCCL mesh "
+              f"(data 1, model 1), n_rep_override {DBRX_TRAIN_LAYERS}): "
+              f"reduced: num_layers {DBRX_TRAIN_LAYERS} of {40}, full width "
+              f"({n / 1e9:.3f} B parameters, bf16; f32 ZeRO-1 moments), "
+              f"batch 1 x {DBRX_TRAIN_SEQ}, MoE {b.moe.strategy} at data 1 "
+              f"runs tp_dense")
+        _zero_counts()
+        params, losses, wall, peak = two_steps(case.fn, params, opt)
+        counts = _counts()
+        assert all(math.isfinite(x) for x in losses), losses
+        want = [t.cpu() for t in leaves(params)]
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = LM(rcfg, device="cuda")
+        p2 = plain.init(seed=4)
+        p2, losses2, wall2, peak2 = two_steps(
+            make_train_step(plain, None, TrainConfig(
+                compress_pod_grads=False)), p2, init_opt_state(p2))
+        same = losses2 == losses and all(
+            torch.equal(a.to(t.device), t) for a, t in zip(want, leaves(p2)))
+        print(f"train [dbrx-132b]: losses {losses[0]:.6f}, {losses[1]:.6f} "
+              f"(finite), second step wall {wall * 1e3:.1f} ms, peak memory "
+              f"{peak / 1e9:.2f} GB; the mesh-less optimizer's steps: losses "
+              f"{losses2[0]:.6f}, {losses2[1]:.6f}, wall {wall2 * 1e3:.1f} "
+              f"ms, peak {peak2 / 1e9:.2f} GB; losses and every updated "
+              f"parameter bitwise equal: {same}; kernel launches "
+              f"{json.dumps(counts)}")
+        assert same, "ZeRO-1 step over one rank != the mesh-less step"
+        del p2, want
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -3089,6 +3709,12 @@ def main() -> int:
         print(f"phase {name}: wall {time.perf_counter() - t:.1f} s")
         return out
 
+    if "--distributed-only" in sys.argv[1:]:
+        # the distributed phase alone, for a machine of several cards: no
+        # kernels line and no result line
+        phase("distributed", distributed_phase, dev, timer)
+        print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
+        return 0
     rows = phase("kernels [llama3.2-1b]", kernel_phase, dev, timer, 32, 8, 64,
                  "llama3.2-1b shapes")
     phase("kernels [qwen3-1.7b]", kernel_phase, dev, timer, 16, 8, 128,
@@ -3109,10 +3735,14 @@ def main() -> int:
           (("prefill Sq=Skv=4096", 2 * W, 0, [2 * W, 3000]),
            ("extend Sq=512 at q_offset 3584", 512, 2 * W - 512,
             [2 * W, 3700])), 2, 5)
+    phase("kernels [recurrentgemma f32]", f32_decode_kernel_phase, dev,
+          timer)
     phase("kernels [qwen2-vl-2b]", kernel_phase, dev, timer, 12, 2, 128,
           "qwen2-vl-2b shapes")
     phase("kernels [phi3.5-moe]", kernel_phase, dev, timer, 32, 8, 128,
           "phi3.5-moe shapes")
+    phase("kernels [dbrx-132b]", kernel_phase, dev, timer, 48, 8, 128,
+          "dbrx-132b shapes")
     phase("kernels [whisper-base]", whisper_kernel_phase, dev, timer)
     phase("grad [attention]", grad_phase, dev, timer)
     launches, models, params, docs = phase("serve", serving_phase)
@@ -3128,6 +3758,18 @@ def main() -> int:
     rec_model_launches, rec_launches = phase(
         "models [families] + serve [recurrent]", recurrent_families_phase,
         docs)
+    # the families' models (phi3.5-moe's 41.9 GB among them) are held by
+    # reference cycles until a collection: free them before the next
+    # full-width models
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg32_launches = phase("models [recurrentgemma-2b f32]",
+                          recurrentgemma_f32_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dbrx_model_launches, dbrx_launches = phase(
+        "models [dbrx-132b] + serve [dbrx oracle]", dbrx_phase, models,
+        params, docs)
     build_launches, restr, build_docs, engine, reordered = phase(
         "build", build_phase)
     rows.append(phase("relevance", relevance_phase, dev, timer, restr,
@@ -3145,6 +3787,7 @@ def main() -> int:
     train_launches, _ = phase("train [llama3.2-1b]", train_llama_phase)
     gc.collect()
     torch.cuda.empty_cache()
+    dbrx_train_launches = phase("train [dbrx-132b]", train_dbrx_phase)
     lse_row, dist_launches = phase("distributed", distributed_phase, dev,
                                    timer)
     rows.append(lse_row)
@@ -3153,14 +3796,16 @@ def main() -> int:
     for r in rows:
         # each path's run, counted from zero: serving, prefix, chaos,
         # gemma3 oracle, the families' model checks and their two serving
-        # paths, build, llama3.2-1b training, the data-parallel steps and
-        # the sp-decode LM of the distributed phase, whisper's model check
-        # and its training
+        # paths, the f32 recurrentgemma check, dbrx's model check and
+        # serving, build, llama3.2-1b and dbrx training, the data-parallel
+        # steps and the sp-decode LM of the distributed phase, whisper's
+        # model check and its training
         r["launches"] = sum(c[r["name"]] for c in (
             launches, prefix_launches, chaos_launches, gemma3_launches,
             *moe_model_launches, moe_launches, *rec_model_launches,
-            rec_launches, build_launches, train_launches, *dist_launches,
-            whisper_launches, whisper_train_launches))
+            rec_launches, rg32_launches, dbrx_model_launches, dbrx_launches,
+            build_launches, train_launches, dbrx_train_launches,
+            *dist_launches, whisper_launches, whisper_train_launches))
         assert r["launches"] > 0, r["name"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -18,6 +18,7 @@ ARCHS: List[str] = [
     "qwen3_1_7b",
     "qwen2_vl_2b",
     "phi3_5_moe",
+    "dbrx_132b",
     "whisper_base",
     "xlstm_350m",
     "recurrentgemma_2b",
@@ -31,6 +32,7 @@ ALIASES: Dict[str, str] = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "dbrx-132b": "dbrx_132b",
     "whisper-base": "whisper_base",
     "xlstm-350m": "xlstm_350m",
     "recurrentgemma-2b": "recurrentgemma_2b",

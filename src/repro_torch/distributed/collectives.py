@@ -19,6 +19,19 @@ data through the process groups of the mesh's axes.
 ``int8_compress`` / ``int8_decompress`` + ``compressed_psum``
     Per-tensor int8 quantization with error feedback for the cross-pod
     gradient all-reduce.
+
+``copy_to_model`` / ``reduce_from_model`` / ``mean_over`` /
+``all_to_all`` (differentiable) and ``group_sum`` / ``reduce_scatter`` /
+``all_gather`` (on gradients and optimizer slices)
+    What GSPMD inserts for the reference's tensor-parallel specs, made
+    explicit (Megatron's pair): ``copy_to_model`` is the identity forward
+    and sums the gradient over the axis, ``reduce_from_model`` sums
+    forward and passes the gradient through, ``mean_over`` (the
+    reference's ``pmean``) averages both ways, and ``all_to_all``'s
+    backward is the exchange back.  Every sum is taken in rank order (an
+    all-gather, then adds from rank 0 up), so every rank holds the same
+    bits and two runs are bitwise equal; over a group of one rank each is
+    the identity.
 """
 from __future__ import annotations
 
@@ -226,3 +239,127 @@ def matmul_ag_overlap(x: torch.Tensor, w: torch.Tensor, mesh,
             cur = _ring_shift(cur, mesh, axis_name)
     idx = axis_index(mesh, axis_name)
     return torch.cat(_in_rank_order(outs, idx, n), dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel collectives (differentiable; sums in rank order)
+# ---------------------------------------------------------------------------
+
+def _gather_parts(x: torch.Tensor, group) -> List[torch.Tensor]:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, added in rank order
+    (bitwise the same on every rank); ``x`` itself over one rank."""
+    if dist.get_world_size(group) == 1:
+        return x
+    parts = _gather_parts(x, group)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk (by rank order along ``dim``) of ``group_sum(x)``,
+    bitwise: each rank receives its chunk of every rank's ``x`` and adds
+    them in rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    send = torch.stack(x.chunk(n, dim))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    out = recv[0]
+    for r in recv[1:]:
+        out = out + r
+    return out
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return torch.cat(_gather_parts(x, group), dim=dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group_sum(x, group) / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_sum(g, ctx.group) / dist.get_world_size(ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()          # the output must not inherit x's strides
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """Identity forward; the gradient summed over ``axis``.  Put where a
+    value held alike by every rank of the axis feeds a rank-local part
+    (a column-parallel product, a head-local norm)."""
+    return _CopyToModel.apply(x, axis_group(mesh, axis))
+
+
+def reduce_from_model(x: torch.Tensor, mesh, axis: str = "model"
+                      ) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axis``; the gradient
+    passes through (a row-parallel product's output)."""
+    return _ReduceFromModel.apply(x, axis_group(mesh, axis))
+
+
+def mean_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The reference's ``pmean``: the mean over ``axis``, forward and
+    backward."""
+    return _MeanOver.apply(x, axis_group(mesh, axis))
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``'s leading axis cut into one slab a rank of ``axis``: slab j
+    goes to rank j, which receives the ranks' slabs in rank order (the
+    reference's ``lax.all_to_all(split_axis=0, concat_axis=0)``).  The
+    backward is the same exchange, which sends each slab's gradient
+    back."""
+    return _AllToAll.apply(x, axis_group(mesh, axis))

@@ -19,9 +19,17 @@ dimension divisible by the data size is additionally sharded over
 "data".
 
 The port's layouts are explicit: each rank holds ``local_shard(x, spec,
-mesh)`` of an array and ``gather_full`` undoes it.  ``constrain`` (the
-JAX package's ``with_sharding_constraint``, a hint to the SPMD
-partitioner) has no eager counterpart and returns its input.
+mesh)`` of an array and ``gather_full`` undoes it (``shard_shape`` gives
+the local shape from the mesh's sizes alone).  The specs are what the
+layers run on: a model built with ``sharded=True`` holds each parameter
+as its ``local_shard`` of ``tree_pspecs(param_specs())`` and computes
+tensor-parallel over ``model`` (Megatron's column/row split, through the
+differentiable collectives of ``distributed.collectives``), with the MoE
+experts cut over ``data`` for ``ep_a2a``; the ZeRO-1 moments
+(``zero_tree_pspecs``) are the sharded train step's
+(``train.optimizer``).  ``constrain`` (the JAX package's
+``with_sharding_constraint``, a hint to the SPMD partitioner) has no
+eager counterpart and returns its input.
 """
 from __future__ import annotations
 
@@ -47,8 +55,9 @@ LOGICAL_TO_MESH = {
 
 __all__ = ["LOGICAL_TO_MESH", "NamedSharding", "Spec", "batch_pspec",
            "constrain", "dp_axes", "gather_full", "local_shard",
-           "logical_to_pspec", "shard_slices", "tree_pspecs",
-           "tree_shardings", "zero_pspec", "zero_tree_pspecs"]
+           "logical_to_pspec", "shard_shape", "shard_slices", "spec_axes",
+           "spec_leaves", "tree_pspecs", "tree_shardings", "zero_pspec",
+           "zero_tree_pspecs"]
 
 
 @dataclass(frozen=True)
@@ -206,3 +215,36 @@ def gather_full(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             dist.all_gather(parts, x.contiguous(), group=group)
             x = torch.cat(parts, dim=d)
     return x
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, in dimension order."""
+    return tuple(a for e in spec for a in _axes_of(e))
+
+
+def spec_leaves(tree: Any, like: Any) -> list:
+    """The specs of a spec tree (dicts and lists, spec tuples at the
+    leaves) in the order ``tree.leaves(like)`` gives the leaves of a tree
+    ``like`` of the same structure, matched by key (dict order may
+    differ: the JAX package's trees come with sorted keys)."""
+    if isinstance(like, dict):
+        return [s for k, v in like.items() for s in spec_leaves(tree[k], v)]
+    if isinstance(like, list):
+        return [s for t, v in zip(tree, like) for s in spec_leaves(t, v)]
+    return [tree]
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's ``local_shard`` of an array of ``shape``
+    (needs the mesh's sizes only: a ``MeshShape`` will do)."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for d, dim in enumerate(shape):
+        n = 1
+        for a in (_axes_of(spec[d]) if d < len(spec) else ()):
+            n *= sizes[a]
+        if dim % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"divide over {spec[d]} ({n})")
+        out.append(dim // n)
+    return tuple(out)

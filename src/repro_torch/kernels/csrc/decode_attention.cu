@@ -73,6 +73,18 @@
 //   warp reads one key per load and a lane group is the whole warp.  The
 //   per-thread state (GH * 8 f32 each of q and acc) is what it is at 128;
 //   only the xor tree is one level deeper.  g = 10 gives GH = 2.
+// - An f32 cache at head_dim 256 (recurrentgemma built in f32, or served
+//   from an f32 arena): a key's row is 1024 bytes, 64 pieces of 16 bytes,
+//   more than a warp has lanes.  Each lane reads PPL = 2 pieces of the key,
+//   piece e and piece e + 32 (so each load instruction of the warp still
+//   reads 512 contiguous bytes), and the lane group stays the whole warp.
+//   This was chosen over two warps a key because it keeps the body's one
+//   rule, no barrier in the key loop: two warps would have to merge every
+//   dot product through shared memory.  The unroll is halved (U = 2 keys in
+//   flight a lane, each two pieces of K and two of V), so the loads in
+//   flight, the per-thread elements of q and acc (GH * 8) and so the
+//   registers are those of the bf16 case at head_dim 256.  An f32 cache
+//   needs no tensor cores (the bound is its bytes, twice bf16's).
 #include "common.cuh"
 
 namespace {
@@ -142,12 +154,17 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
     long long v_sr, long long v_ss, long long v_sh, float scale) {
   using repro::kNegInf;
   constexpr int EPL = Vec16<TKV>::kN;              // elements per load
-  constexpr int LPK = DH / EPL;                    // lanes per key
+  constexpr int PIECES = DH / EPL;                 // 16-byte pieces a key
+  constexpr int PPL = PIECES > 32 ? PIECES / 32 : 1;  // pieces per lane
+  constexpr int LPK = PIECES / PPL;                // lanes per key
+  constexpr int EL = PPL * EPL;                    // elements per lane
   constexpr int KPW = 32 / LPK;                    // keys per warp per load
   constexpr int kStep = kWarps * KPW;              // keys per block per load
   constexpr int KPG = kKvChunk / kStep;            // keys per lane group
-  constexpr int U = KPG < kUnroll ? KPG : kUnroll;
-  static_assert(DH % EPL == 0 && LPK >= 1 && LPK <= 32, "head_dim");
+  constexpr int UP = kUnroll / PPL;                // keys in flight a lane
+  constexpr int U = KPG < UP ? KPG : UP;
+  static_assert(DH % EPL == 0 && LPK >= 1 && LPK <= 32 &&
+                    PIECES == PPL * LPK && U >= 1, "head_dim");
   static_assert(kKvChunk % kStep == 0 && KPG % U == 0, "chunk");
 
   // the combine launch may start its prologue now (programmatic launch)
@@ -174,28 +191,32 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
   const int grp = lane / LPK;            // the key this lane reads per load
   const int e = lane - grp * LPK;        // its 16-byte piece of that key
 
-  float qr[GH][EPL];
+  // lane e holds elements [(j * LPK + e) * EPL, + EPL) of piece j < PPL
+  float qr[GH][EL];
 #pragma unroll
   for (int h = 0; h < GH; ++h) {
     const TQ* qp = q + ((long long)b * Hq + hq0 + h) * DH + e * EPL;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) qr[h][i] = repro::to_f32(qp[i]) * scale;
+    for (int j = 0; j < PPL; ++j)
+#pragma unroll
+      for (int i = 0; i < EPL; ++i)
+        qr[h][j * EPL + i] = repro::to_f32(qp[j * LPK * EPL + i]) * scale;
   }
   const TKV* kb = k + hk * k_sh + e * EPL;
   const TKV* vb = v + hk * v_sh + e * EPL;
 
-  float m[GH], l[GH], acc[GH][EPL];
+  float m[GH], l[GH], acc[GH][EL];
 #pragma unroll
   for (int h = 0; h < GH; ++h) {
     m[h] = kNegInf;
     l[h] = 0.f;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < EL; ++i) acc[h][i] = 0.f;
   }
 
   for (int it = 0; it < KPG; it += U) {
     if (c0 + it * kStep >= n) break;     // the rest of the chunk is masked
-    uint4 kr[U], vr[U];
+    uint4 kr[U][PPL], vr[U][PPL];
     bool valid[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -203,21 +224,25 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
       valid[u] = pos < n;
       const int p = valid[u] ? pos : n - 1;   // a masked key rereads n - 1
       const long long row = per_key ? rows_b[p / table_block] : row0;
-      kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + row * k_sr +
-                                                   p * k_ss));
-      vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + row * v_sr +
-                                                   p * v_ss));
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) {
+        kr[u][j] = __ldg(reinterpret_cast<const uint4*>(
+            kb + row * k_sr + p * k_ss + j * LPK * EPL));
+        vr[u][j] = __ldg(reinterpret_cast<const uint4*>(
+            vb + row * v_sr + p * v_ss + j * LPK * EPL));
+      }
     }
     float s[U][GH];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[EPL];
-      Vec16<TKV>::unpack(kr[u], kf);
+      float kf[EL];
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) Vec16<TKV>::unpack(kr[u][j], kf + j * EPL);
 #pragma unroll
       for (int h = 0; h < GH; ++h) {
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) d = fmaf(qr[h][i], kf[i], d);
+        for (int i = 0; i < EL; ++i) d = fmaf(qr[h][i], kf[i], d);
         // every lane of the group ends with the same sum (a + b == b + a)
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
@@ -225,9 +250,12 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
         s[u][h] = valid[u] ? d : kNegInf;
       }
     }
-    float vf[U][EPL];
+    float vf[U][EL];
 #pragma unroll
-    for (int u = 0; u < U; ++u) Vec16<TKV>::unpack(vr[u], vf[u]);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < PPL; ++j)
+        Vec16<TKV>::unpack(vr[u][j], vf[u] + j * EPL);
 #pragma unroll
     for (int h = 0; h < GH; ++h) {
       float mx = m[h];
@@ -243,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
       }
       l[h] = l[h] * alpha + sum;
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) {
+      for (int i = 0; i < EL; ++i) {
         float a = acc[h][i] * alpha;
 #pragma unroll
         for (int u = 0; u < U; ++u) a = fmaf(p[u], vf[u][i], a);
@@ -265,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
       const float ao = expf(mo - mx);
       l[h] = l[h] * a + lo * ao;
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) {
+      for (int i = 0; i < EL; ++i) {
         const float xo = __shfl_xor_sync(kFull, acc[h][i], off);
         acc[h][i] = acc[h][i] * a + xo * ao;
       }
@@ -281,7 +309,10 @@ __global__ void __launch_bounds__(kThreads, 2) decode_partial_kernel(
 #pragma unroll
     for (int h = 0; h < GH; ++h) {
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) sm_acc[warp][h][e * EPL + i] = acc[h][i];
+      for (int j = 0; j < PPL; ++j)
+#pragma unroll
+        for (int i = 0; i < EPL; ++i)
+          sm_acc[warp][h][(j * LPK + e) * EPL + i] = acc[h][j * EPL + i];
       if (e == 0) {
         sm_m[warp][h] = m[h];
         sm_l[warp][h] = l[h];
@@ -401,10 +432,6 @@ cudaError_t launch_heads(bool lse, const TQ* q, const TKV* k, const TKV* v,
 
 // A block takes GH = 4, 2 or 1 query heads of its KV head: the largest
 // that divides g, so g = 2 (qwen3) and g = 4 (llama) read each K/V byte once.
-//
-// A key's row is read by LPK = DH * sizeof(TKV) / 16 lanes of one warp, so
-// an f32 cache at head_dim 256 (64 lanes a key) has no instantiation: the
-// wrapper raises for that pair before it gets here.
 template <typename TQ, typename TKV, int DH>
 cudaError_t launch(bool lse, const void* q, const void* k, const void* v,
                    void* o, void* part, const void* rows, long long rows_stride,
@@ -412,10 +439,7 @@ cudaError_t launch(bool lse, const void* q, const void* k, const void* v,
                    int Hkv, int S, long long k_sr, long long k_ss,
                    long long k_sh, long long v_sr, long long v_ss,
                    long long v_sh, float scale, cudaStream_t stream) {
-  if constexpr (DH * sizeof(TKV) / 16 > 32) {
-    return cudaErrorNotSupported;
-  } else {
-    const int g = Hq / Hkv;
+  const int g = Hq / Hkv;
 #define HEADS(GH)                                                             \
   launch_heads<TQ, TKV, DH, GH>(                                             \
       lse, static_cast<const TQ*>(q), static_cast<const TKV*>(k),            \
@@ -423,11 +447,10 @@ cudaError_t launch(bool lse, const void* q, const void* k, const void* v,
       static_cast<float*>(part), static_cast<const int*>(rows), rows_stride, \
       table_block, static_cast<const int*>(kv_len), B, Hq, Hkv, S, k_sr,     \
       k_ss, k_sh, v_sr, v_ss, v_sh, scale, stream)
-    if (g % 4 == 0) return HEADS(4);
-    if (g % 2 == 0) return HEADS(2);
-    return HEADS(1);
+  if (g % 4 == 0) return HEADS(4);
+  if (g % 2 == 0) return HEADS(2);
+  return HEADS(1);
 #undef HEADS
-  }
 }
 
 // The two entries share one argument list: o is q's dtype [B, Hq, DH] for

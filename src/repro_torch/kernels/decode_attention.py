@@ -87,11 +87,6 @@ def _check_common(q, k, v, kv_len, where: str) -> None:
     if k.shape[3] != Dh or Dh not in _build.HEAD_DIMS or Hq % k.shape[2]:
         raise ValueError(f"{where}: head_dim {Dh} / heads {Hq}:{k.shape[2]} "
                          "unsupported")
-    if Dh * k.element_size() > 32 * 16:
-        # one warp's lanes read a key's row, 16 bytes each
-        raise ValueError(f"{where}: no kernel for a {k.dtype} cache at "
-                         f"head_dim {Dh} (a key's row is more than 32 "
-                         "16-byte pieces); store the cache in bf16")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{where}: cache head_dim axis must be contiguous")
     # the kernel reads each key's row in 16-byte pieces

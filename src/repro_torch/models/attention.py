@@ -75,6 +75,19 @@ owns its position and attends through
 log-sum-exp mode and two all-reduces).  Windowed layers keep their ring
 path, as in the JAX package.  An extend at ``q_offset > 0`` and paged
 serving take no sharded cache.
+
+Tensor parallelism (``tp_mesh``, a mesh whose ``model`` axis is larger
+than 1; the parameters this rank's shards of ``spec_attention``): ``wq``
+and ``wo`` hold this rank's query heads, ``wk``/``wv`` its KV heads when
+``kv_sharded`` (the KV heads divide over ``tp``), else all of them, of
+which the rank takes the KV heads of its own query heads.  The input
+enters through ``copy_to_model``, so do the replicated weights that act
+on the rank's heads alone (``wk``/``wv`` when not sharded, the QK-norm
+scales), and ``wo``'s partial output leaves through
+``reduce_from_model``.  The local heads run the same kernels at local
+head counts; dense caches hold the local KV heads.  Paged and
+sequence-parallel caches, and caches of replicated KV heads, take no
+model axis (they raise).
 """
 from __future__ import annotations
 
@@ -83,7 +96,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..distributed.collectives import sp_decode_attention
+from ..distributed.collectives import copy_to_model, reduce_from_model, \
+    sp_decode_attention
 from ..distributed.compat import axis_index, axis_size
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
@@ -202,6 +216,39 @@ def _sp_slice(t: torch.Tensor, mesh) -> torch.Tensor:
     return t[:, i * s:(i + 1) * s].contiguous()
 
 
+def _kv_heads_of_rank(h_loc: int, kv: int, mesh) -> slice:
+    """The KV heads that rank j's query heads ``[j * h_loc, (j + 1) *
+    h_loc)`` read, out of ``kv`` replicated ones."""
+    g = h_loc * axis_size(mesh, "model") // kv
+    j = axis_index(mesh, "model")
+    if h_loc % g == 0:
+        return slice(j * h_loc // g, (j + 1) * h_loc // g)
+    if g % h_loc == 0:
+        return slice(j * h_loc // g, j * h_loc // g + 1)
+    raise NotImplementedError(
+        f"{h_loc} query heads a rank do not map onto whole groups of "
+        f"{g} query heads a KV head")
+
+
+def _tp_weights(p: Dict[str, Any], mesh, kv_sharded: bool, train: bool
+                ) -> Dict[str, Any]:
+    """This rank's view of the attention weights under tensor
+    parallelism (module docstring)."""
+    q = dict(p)
+    if not kv_sharded:
+        if not train:
+            raise NotImplementedError(
+                "serving a model whose KV heads are replicated over the "
+                "model axis (padded_kv_heads < tp) is not ported; it trains")
+        sl = _kv_heads_of_rank(p["wq"].shape[1], p["wk"].shape[1], mesh)
+        q["wk"] = copy_to_model(p["wk"], mesh)[:, sl]
+        q["wv"] = copy_to_model(p["wv"], mesh)[:, sl]
+    for n in ("q_norm", "k_norm"):
+        if n in p:
+            q[n] = {"scale": copy_to_model(p[n]["scale"], mesh)}
+    return q
+
+
 def attention_apply(
     p: Dict[str, Any],
     x: torch.Tensor,                           # [B, S, D]
@@ -228,11 +275,21 @@ def attention_apply(
     use_rope: bool = True,                     # whisper: absolute sinusoids
     kv_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross K, V
     sp_mesh=None,                              # sequence-parallel caches
+    tp_mesh=None,                              # tensor-parallel heads
+    kv_sharded: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     local = window is not None and window > 0
     sp = sp_mesh is not None and not local
     if sp and slots is not None:
         raise ValueError("paged serving takes no sequence-parallel cache")
+    if tp_mesh is not None:
+        if sp or slots is not None or kv_ctx is not None:
+            raise NotImplementedError(
+                "tensor-parallel attention takes dense self-attention "
+                "caches only")
+        p = _tp_weights(p, tp_mesh, kv_sharded,
+                        train=(mode == "full" and not want_cache))
+        x = copy_to_model(x, tp_mesh)
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
@@ -370,4 +427,6 @@ def attention_apply(
         raise ValueError(mode)
 
     out = out.reshape(B, S, h * dv) @ p["wo"].reshape(h * dv, d)
+    if tp_mesh is not None:
+        out = reduce_from_model(out, tp_mesh)
     return out, new_cache

@@ -54,6 +54,13 @@ def check_supported(rcfg: ResolvedConfig) -> None:
                          "models.whisper.WhisperModel")
 
 
+def tp_unported(name: str) -> str:
+    return (f"{name}: tensor parallelism over a model axis larger than 1 "
+            "is ported for attention, MLP and MoE layers only; the "
+            "recurrent mixers and whisper's layers wait for it (ROADMAP "
+            "Queue 1)")
+
+
 def _has_ffn(rcfg: ResolvedConfig) -> bool:
     return rcfg.base.moe is not None or rcfg.base.d_ff > 0
 
@@ -137,12 +144,14 @@ def spec_block_state(rcfg: ResolvedConfig, kind: str, *, batch_sharded: bool,
 
 
 def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
-                kv_dtype: torch.dtype, seq_shards: int = 1) -> LeafShapes:
+                kv_dtype: torch.dtype, seq_shards: int = 1,
+                head_shards: int = 1) -> LeafShapes:
     """(shape, dtype) of every state leaf of one layer.  ``kv_dtype`` is
     the storage dtype of attention caches only; a sliding-window layer's
     ring never needs more positions than its window.  ``seq_shards``
     cuts a full-attention cache's ``s_alloc`` positions over that many
-    ranks (sequence-parallel decode)."""
+    ranks (sequence-parallel decode), ``head_shards`` an attention
+    cache's KV heads (tensor parallelism)."""
     b = rcfg.base
     if kind in ATTN_KINDS:
         if kind == ATTN_LOCAL:
@@ -152,7 +161,8 @@ def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
                              f"{seq_shards} sequence shards")
         else:
             s_alloc //= seq_shards
-        shape = (batch, s_alloc, rcfg.padded_kv_heads, rcfg.head_dim)
+        shape = (batch, s_alloc, rcfg.padded_kv_heads // head_shards,
+                 rcfg.head_dim)
         return {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
     if kind == MLSTM:
         return ssm.mlstm_state_shape(batch, b.num_heads,
@@ -166,7 +176,8 @@ def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
 
 def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
                      s_alloc: int, kv_dtype: torch.dtype, device,
-                     seq_shards: int = 1) -> Dict[str, torch.Tensor]:
+                     seq_shards: int = 1, head_shards: int = 1
+                     ) -> Dict[str, torch.Tensor]:
     """A fresh state: zeroed caches; recurrent states at their initial
     values (mLSTM/sLSTM ``m`` at ``LOG_EPS``, sLSTM ``n`` at 1e-6)."""
     b = rcfg.base
@@ -177,7 +188,8 @@ def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
         return ssm.init_slstm_state(batch, b.d_model, device)
     return {n: torch.zeros(shape, dtype=dt, device=device)
             for n, (shape, dt) in state_shape(rcfg, kind, batch, s_alloc,
-                                              kv_dtype, seq_shards).items()}
+                                              kv_dtype, seq_shards,
+                                              head_shards).items()}
 
 
 def block_apply(
@@ -198,12 +210,16 @@ def block_apply(
     mesh=None,                                 # device mesh (MoE strategies)
     dp_spec=None,                              # batch spec over the mesh
     sp_mesh=None,                              # sequence-parallel caches
+    tp_mesh=None,                              # tensor-parallel layers
+    sharded: bool = False,                     # p holds this rank's shards
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Any]:
     """Returns (y, new_state, MoE aux loss or 0.0).  Attention caches are
     updated in place (the returned state is the same dict); recurrent
     states come back as new tensors; ``train`` returns no state.  A
     recurrent layer ignores ``kv_len``: it runs over the whole chunk,
-    bucket PAD included, as the JAX package's does."""
+    bucket PAD included, as the JAX package's does.  With ``tp_mesh``
+    (attention kinds only) the attention heads and the MLP's d_ff are
+    this rank's shards (``models.attention``, ``models.layers``)."""
     b = rcfg.base
     aux = 0.0                  # a tensor only where a MoE FFN computes it
     h = rmsnorm_apply(p["norm1"], x, b.norm_eps)
@@ -221,7 +237,8 @@ def block_apply(
             slots=slots, block_tables=block_tables,
             want_cache=(mode != "train"),
             qk_norm=b.qk_norm, theta=b.rope_theta, norm_eps=b.norm_eps,
-            sp_mesh=sp_mesh)
+            sp_mesh=sp_mesh, tp_mesh=tp_mesh,
+            kv_sharded=rcfg.padded_kv_heads >= rcfg.tp)
     else:
         assert slots is None, \
             "paged serving (slots) supports attention-state models only"
@@ -246,8 +263,8 @@ def block_apply(
             y, aux = moe_apply(p["moe"], h2, top_k=b.moe.top_k,
                                capacity_factor=b.moe.capacity_factor,
                                strategy=b.moe.strategy, act=b.act,
-                               mesh=mesh, dp_spec=dp_spec)
+                               mesh=mesh, dp_spec=dp_spec, sharded=sharded)
         else:
-            y = mlp_apply(p["mlp"], h2, b.act)
+            y = mlp_apply(p["mlp"], h2, b.act, tp_mesh)
         x = x + y
     return x, new_state, aux

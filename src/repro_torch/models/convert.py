@@ -14,6 +14,10 @@ so ``whisper_from_jax`` only turns the tuples into lists.
 Arrays arrive as numpy (``jax.tree.map(np.asarray, tree)`` on the
 caller's side), so this module imports nothing of JAX.
 
+``shard_params`` cuts a full parameter tree into one rank's shards of
+its model's ``param_specs`` over a mesh: what a model built with
+``sharded=True`` holds.
+
 ``jax_ndims`` tells the optimizer how many dimensions each port leaf has
 in the JAX layout: the reference's AdamW decays exactly the leaves with
 ``ndim >= 2`` there, which includes every norm scale of a stacked layer
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import ResolvedConfig
+from ..distributed.sharding import local_shard, spec_leaves, tree_pspecs
 from ..tree import tree_map
 from .runtime import DeviceLike
 
@@ -100,3 +105,12 @@ def states_from_jax(states_np: Dict[str, Any], rcfg: ResolvedConfig,
     per-layer KV caches, so arena contents compare like with like."""
     layers = _unstack(states_np["stages"], states_np["tail"], _n_rep(rcfg))
     return [tree_map(lambda a: _tensor(a, device), layer) for layer in layers]
+
+
+def shard_params(params: Dict[str, Any], model, mesh) -> Dict[str, Any]:
+    """This rank's ``local_shard`` of every leaf of ``params`` (full
+    arrays, tensors or numpy) under ``tree_pspecs(model.param_specs(),
+    mesh)``."""
+    specs = iter(spec_leaves(tree_pspecs(model.param_specs(), mesh),
+                             params))
+    return tree_map(lambda t: local_shard(t, next(specs), mesh), params)

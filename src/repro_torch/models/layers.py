@@ -6,6 +6,14 @@ Functional pairs ``init_*(gen, ...) -> params`` / ``*_apply(params, x)``
 over plain dicts of tensors, with the JAX package's parameter layouts so
 converted weights drop in unchanged.  Initializers draw from an explicit
 ``torch.Generator`` on the target device.
+
+Tensor parallelism (``tp_mesh``, a mesh whose ``model`` axis is larger
+than 1, with the parameters held as this rank's shards of their
+``spec_*``): the gated MLP is column-parallel in ``w1``/``w3`` and
+row-parallel in ``w2`` (``copy_to_model``, the local columns, the local
+rows, ``reduce_from_model``); the embedding looks up the rows of its
+vocab shard, masks the others and sums over ``model``; the tied head
+gives this rank's shard of the logits, ``[..., V / tp]``.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.collectives import copy_to_model, reduce_from_model
+from ..distributed.compat import axis_index
 
 
 def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
@@ -137,10 +148,14 @@ def spec_mlp():
     return {"w1": (None, "tp"), "w3": (None, "tp"), "w2": ("tp", None)}
 
 
-def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, act: str = "silu",
+              tp_mesh=None) -> torch.Tensor:
     a = ACTS[act]
+    if tp_mesh is not None:
+        x = copy_to_model(x, tp_mesh)
     h = a(x @ params["w1"]) * (x @ params["w3"])
-    return h @ params["w2"]
+    y = h @ params["w2"]
+    return y if tp_mesh is None else reduce_from_model(y, tp_mesh)
 
 
 def init_mlp2(gen: torch.Generator, d: int, f: int, dtype) -> dict:
@@ -191,8 +206,16 @@ def spec_embed():
     return {"table": ("tp", None)}
 
 
-def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed_apply(params, tokens: torch.Tensor, tp_mesh=None) -> torch.Tensor:
+    table = params["table"]
+    if tp_mesh is None:
+        return table[tokens]
+    lo = axis_index(tp_mesh, "model") * table.shape[0]
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    x = table[torch.where(mine, local, 0)]
+    return reduce_from_model(torch.where(mine[..., None], x, 0.0).to(
+        table.dtype), tp_mesh)
 
 
 class _HeadMatmul(torch.autograd.Function):
@@ -220,7 +243,8 @@ class _HeadMatmul(torch.autograd.Function):
 
 
 def lm_head_apply(params, x: torch.Tensor,
-                  softcap: Optional[float] = None) -> torch.Tensor:
+                  softcap: Optional[float] = None,
+                  tp_mesh=None) -> torch.Tensor:
     """Tied head: logits = x @ table.T with f32 ACCUMULATION and f32 out.
 
     On the card a bf16 table stays in its storage dtype (cuBLAS bf16
@@ -229,6 +253,8 @@ def lm_head_apply(params, x: torch.Tensor,
     on the CPU the product runs in f32.
     """
     table = params["table"]
+    if tp_mesh is not None:
+        x = copy_to_model(x, tp_mesh)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32 and table.dtype == torch.float32:

@@ -43,19 +43,34 @@ shard): MoE layers take the mesh strategies (``models.moe``), and with
 the ``data`` axis (``init_states`` allocates ``s_alloc / n_data``
 positions a rank) and decode steps go through
 ``distributed.collectives.sp_decode_attention``, as the JAX package's
-``Runtime(mesh=, sp_decode=)``.  Dense layers compute replicated.
-``param_specs`` gives the logical spec of every parameter, the JAX
-package's with the stacked layer axis dropped.
+``Runtime(mesh=, sp_decode=)``.  ``param_specs`` gives the logical spec
+of every parameter, the JAX package's with the stacked layer axis
+dropped.
+
+``LM(..., mesh=, sharded=True)`` holds the parameters as this rank's
+shards of ``param_specs`` over the mesh (``distributed.sharding
+.local_shard``; ``convert.shard_params`` cuts them), which is what GSPMD
+makes of the reference's specs: over a ``model`` axis larger than 1 the
+layers are tensor-parallel (Megatron's column/row split of the heads,
+the MLP and the vocab: ``models.layers``, ``models.attention``), MoE
+experts are this rank's slices, and ``forward`` gives this rank's vocab
+shard of the logits.  ``loss`` is then the vocab-parallel cross-entropy
+(``vocab_parallel_xent``).  Without ``sharded`` the dense layers compute
+replicated on full parameters.  Recurrent layers take no model axis
+(they raise).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import ATTN_FULL, ResolvedConfig
 from . import blocks
-from ..distributed.compat import axis_size
+from ..distributed.collectives import reduce_from_model
+from ..distributed.compat import axis_group, axis_index, axis_names, \
+    axis_size
 from ..distributed.sharding import batch_pspec
 from .layers import embed_apply, init_embed, init_rmsnorm, lm_head_apply, \
     rmsnorm_apply, spec_embed, spec_rmsnorm
@@ -72,11 +87,36 @@ def token_xent(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
     exactly."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     tok_ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return _masked_mean_ll(tok_ll, batch)
+
+
+def _masked_mean_ll(tok_ll: torch.Tensor, batch) -> torch.Tensor:
     mask = batch.get("loss_mask")
     if mask is None:
         return -tok_ll.sum() / max(tok_ll.numel(), 1)
     mask = mask.float()
     return -(tok_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def vocab_parallel_xent(logits: torch.Tensor,
+                        batch: Dict[str, torch.Tensor], mesh
+                        ) -> torch.Tensor:
+    """``token_xent`` over logits cut along the vocab over ``model``
+    (``[B, S, V / tp]`` on each rank; the padded columns included, as the
+    reference's log-softmax over the padded vocab has them), in f32: the
+    global max (a MAX all-reduce; log-softmax does not depend on it), the
+    sum of exponentials and the target's logit, each summed over
+    ``model`` in rank order.  Every rank returns the same loss."""
+    lf = logits.float()
+    v_loc = lf.shape[-1]
+    m = lf.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=axis_group(mesh, "model"))
+    sumexp = reduce_from_model(torch.exp(lf - m[..., None]).sum(-1), mesh)
+    lab = batch["labels"].long() - axis_index(mesh, "model") * v_loc
+    mine = (lab >= 0) & (lab < v_loc)
+    tgt = lf.gather(-1, torch.where(mine, lab, 0)[..., None])[..., 0]
+    tgt = reduce_from_model(torch.where(mine, tgt, 0.0), mesh)
+    return _masked_mean_ll(tgt - m - torch.log(sumexp), batch)
 
 
 class LM:
@@ -85,16 +125,36 @@ class LM:
     scale (gemma3, recurrentgemma); M-RoPE and vision patches (qwen2-vl)."""
 
     def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda",
-                 mesh=None, sp_decode: bool = False):
+                 mesh=None, sp_decode: bool = False, sharded: bool = False):
         blocks.check_supported(rcfg)
         self.rcfg = rcfg
         self.device = resolve_device(device)
         self.mesh = mesh
         self.sp_decode = sp_decode and mesh is not None
+        self.sharded = sharded and mesh is not None
+        if self.tp_mesh is not None:
+            if rcfg.tp != axis_size(mesh, "model"):
+                raise ValueError(f"resolved for tp {rcfg.tp}, mesh model "
+                                 f"axis {axis_size(mesh, 'model')}")
 
     @property
     def _sp_mesh(self):
         return self.mesh if self.sp_decode else None
+
+    @property
+    def tp_mesh(self):
+        """The mesh when the layers are tensor-parallel (``sharded`` over
+        a ``model`` axis larger than 1), else None."""
+        if self.sharded and "model" in axis_names(self.mesh) \
+                and axis_size(self.mesh, "model") > 1:
+            return self.mesh
+        return None
+
+    @property
+    def _head_shards(self) -> int:
+        r = self.rcfg
+        return r.tp if self.tp_mesh is not None \
+            and r.padded_kv_heads >= r.tp else 1
 
     @property
     def _seq_shards(self) -> int:
@@ -151,7 +211,8 @@ class LM:
         rank's ``s_alloc / n_data`` positions."""
         dt = kv_dtype or self.dtype
         return [blocks.init_block_state(self.rcfg, kind, batch, s_alloc, dt,
-                                        self.device, self._seq_shards)
+                                        self.device, self._seq_shards,
+                                        self._head_shards)
                 for kind in self.kinds]
 
     def state_shapes(self, batch: int, s_alloc: int, kv_dtype=None
@@ -160,7 +221,7 @@ class LM:
         ``init_states`` allocates, per layer kind."""
         dt = kv_dtype or self.dtype
         return [blocks.state_shape(self.rcfg, kind, batch, s_alloc, dt,
-                                   self._seq_shards)
+                                   self._seq_shards, self._head_shards)
                 for kind in self.kinds]
 
     # ------------------------------------------------------- arena state API
@@ -235,7 +296,8 @@ class LM:
                 cache_len=cache_len, q_offset=q_offset, kv_len=kv_len,
                 slots=slots, block_tables=block_tables, positions=positions,
                 positions3=positions3, mesh=self.mesh, dp_spec=dp_spec,
-                sp_mesh=self._sp_mesh)
+                sp_mesh=self._sp_mesh, tp_mesh=self.tp_mesh,
+                sharded=self.sharded)
             new_states.append(ns)
             if mode == "train":       # serving passes discard the aux loss
                 aux = aux + a
@@ -244,13 +306,19 @@ class LM:
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         b = self.rcfg.base
         x = rmsnorm_apply(params["final_norm"], x, b.norm_eps)
-        return lm_head_apply(params["embed"], x, b.logit_softcap)[:, 0]
+        return lm_head_apply(params["embed"], x, b.logit_softcap,
+                             self.tp_mesh)[:, 0]
 
     def embed_inputs(self, params, batch: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
         """Token embeddings, with qwen2-vl's ``patch_emb`` (the stubbed
         vision frontend) prepended, then the embedding scale."""
-        x = embed_apply(params["embed"], batch["tokens"]).to(self.dtype)
+        if self.tp_mesh is not None and any(
+                k not in blocks.ATTN_KINDS for k in self.kinds):
+            raise NotImplementedError(blocks.tp_unported(
+                self.rcfg.base.name))
+        x = embed_apply(params["embed"], batch["tokens"],
+                        self.tp_mesh).to(self.dtype)
         if (self.rcfg.base.frontend_stub == "vision_patches"
                 and "patch_emb" in batch):
             x = torch.cat([batch["patch_emb"].to(self.dtype), x], dim=1)
@@ -265,7 +333,8 @@ class LM:
     # ------------------------------------------------------------ entry pts
     def forward(self, params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Training/eval forward -> (logits [B, S, V] f32, MoE aux)."""
+        """Training/eval forward -> (logits [B, S, V] f32, MoE aux); the
+        logits are this rank's ``[B, S, V / tp]`` when tensor-parallel."""
         x = self.embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = batch.get("positions")
@@ -276,13 +345,17 @@ class LM:
                                      positions3=batch.get("positions3"))
         b = self.rcfg.base
         x = rmsnorm_apply(params["final_norm"], x, b.norm_eps)
-        return (lm_head_apply(params["embed"], x, b.logit_softcap),
+        return (lm_head_apply(params["embed"], x, b.logit_softcap,
+                              self.tp_mesh),
                 torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy (+ 0.01 MoE aux); ``labels``
         [B, S_total], optional ``loss_mask``."""
         logits, aux = self.forward(params, batch)
+        if self.tp_mesh is not None:
+            return vocab_parallel_xent(logits, batch, self.tp_mesh) \
+                + 0.01 * aux
         return token_xent(logits, batch) + 0.01 * aux
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,

@@ -28,20 +28,33 @@ mesh (``distributed.compat``), each rank passes its local batch shard:
 ``ep_a2a``   experts sharded over ``data``, d_ff over ``model``: every
              rank routes its own tokens (capacity ``max(int(t * top_k *
              cf / E), 8)`` over its ``t`` tokens), fills the full ``[E, C,
-             D]`` buffer, and two ``all_to_all_single`` on the data group
-             carry expert slabs to their owners and back; the partial
-             down-projection is all-reduced over ``model``.
+             D]`` buffer, and two ``collectives.all_to_all`` on the data
+             group carry expert slabs to their owners and back; the
+             partial down-projection is summed over ``model``.
 ``tp_smap``  experts replicated, d_ff over ``model``: the per-row dispatch
              of ``tp_dense`` with capacity ``max(int(S * top_k * 1.6 * cf
              / E), 8)`` on the rank's d_ff slice, the combine BEFORE the
-             ``model`` all-reduce (it is linear, so it commutes with the
+             ``model`` sum (it is linear, so it commutes with the
              reduction and moves the token batch instead of the buffer),
              and the aux loss averaged over ``model``.
 
-Each rank cuts its weight slices from the full (replicated) parameters
-with ``distributed.sharding.local_shard`` under ``spec_moe(strategy)``,
-on every call.  The mesh strategies are forward only: they raise when
-autograd would record them (gradients through them are not ported).
+Both carry gradients.  The exchanges are differentiable
+(``distributed.collectives``): the all-to-all's backward sends each slab's
+gradient back to the rank it came from, so a rank's expert gradient sums
+every data rank's tokens; ``copy_to_model`` on the tokens that enter the
+d_ff slice (and, in ``tp_smap``, on the combine weights, which multiply a
+partial output) sums their gradients over ``model``, and
+``reduce_from_model`` on the partial output passes its gradient through.
+Each rank's aux loss is its own tokens' (the reference's ``out_specs=P()``
+gives the mean of the shards' under ``jax.grad``).
+
+The strategies take the full parameters and cut this rank's slices with
+``distributed.sharding.local_shard`` under ``spec_moe(strategy)``, or,
+with ``sharded=True``, take the slices themselves (a tensor-parallel
+model holds only those).  A ``tp_dense`` layer whose d_ff is sharded over
+``model`` (``ep_a2a`` weights on a mesh whose ``data`` axis is 1, as the
+reference's dispatch gives) runs ``tp_dense``'s capacity on the slices
+with the same ``model`` sum.
 
 ``DROP_LOG``: when set to a list, every MoE layer appends the keep mask
 of its call (``[B, S, top_k]`` bool, on the device: nothing syncs), so a
@@ -53,10 +66,10 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
-from ..distributed.compat import axis_group, axis_names, axis_size, \
-    mesh_shape
+from ..distributed.collectives import all_to_all, copy_to_model, \
+    mean_over, reduce_from_model
+from ..distributed.compat import axis_names, axis_size, mesh_shape
 from ..distributed.sharding import local_shard, logical_to_pspec
 from .layers import ACTS, _dense_init
 
@@ -129,15 +142,20 @@ def row_capacity(seq: int, top_k: int, capacity_factor: float,
 
 
 def _moe_tokens(params, x: torch.Tensor, *, top_k: int, capacity: int,
-                act: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                act: str, tp_mesh=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row MoE over x [B, S, D] -> (out [B, S, D], router logits
-    [B, S, E], expert ids [B, S, K])."""
+    [B, S, E], expert ids [B, S, K]).  With ``tp_mesh`` the expert weights
+    are d_ff slices and ``out`` is this rank's partial sum."""
     B, S, D = x.shape
     E = params["w1"].shape[0]
     ids, weights, logits = _route(params["router"], x, top_k)
     pos, keep = _dispatch_indices(ids, E, capacity)
     if DROP_LOG is not None:
         DROP_LOG.append(keep)
+    if tp_mesh is not None:
+        x, weights = copy_to_model(x, tp_mesh), copy_to_model(weights,
+                                                               tp_mesh)
     # kept assignments at unique (row, expert, position); dropped ones at
     # the spare position ``capacity``, never read
     slot = torch.where(keep, pos, capacity)
@@ -178,8 +196,12 @@ def moe_apply_tp_dense(params, x: torch.Tensor, *, top_k: int,
     return out, aux
 
 
-def _local_weights(params, strategy: str, mesh) -> Dict[str, torch.Tensor]:
-    """This rank's slices of the expert weights under ``spec_moe``."""
+def _local_weights(params, strategy: str, mesh, sharded: bool
+                   ) -> Dict[str, torch.Tensor]:
+    """This rank's slices of the expert weights under ``spec_moe``
+    (``params`` as they are when they hold the slices already)."""
+    if sharded:
+        return params
     spec = spec_moe(strategy)
     out = {"router": params["router"]}
     for k in ("w1", "w3", "w2"):
@@ -188,26 +210,23 @@ def _local_weights(params, strategy: str, mesh) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _forward_only(params, x: torch.Tensor, strategy: str) -> None:
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in params.values())):
-        raise NotImplementedError(
-            f"MoE strategy {strategy!r} over a mesh is forward only: "
-            "gradients through it are not ported")
+def _model_parallel(mesh) -> bool:
+    return "model" in axis_names(mesh) and axis_size(mesh, "model") > 1
 
 
 def moe_apply_ep_a2a(params, x: torch.Tensor, *, top_k: int,
                      capacity_factor: float, act: str = "silu", mesh,
-                     dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     dp_spec=None, sharded: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE over this rank's tokens x [B_loc, S, D] ->
     (out [B_loc, S, D], this rank's aux loss)."""
-    _forward_only(params, x, "ep_a2a")
     b_loc, S, D = x.shape
-    E = params["w1"].shape[0]
+    E = params["router"].shape[1]
     n_data = axis_size(mesh, "data")
     assert E % n_data == 0, (E, n_data)
     e_loc = E // n_data
-    w = _local_weights(params, "ep_a2a", mesh)    # w1 [E_loc, D, F_loc]
+    w = _local_weights(params, "ep_a2a", mesh, sharded)  # [E_loc, D, F_loc]
+    tp = _model_parallel(mesh)
     t = b_loc * S
     x2d = x.reshape(t, D)
     capacity = max(int(t * top_k * capacity_factor / E), 8)
@@ -215,60 +234,69 @@ def moe_apply_ep_a2a(params, x: torch.Tensor, *, top_k: int,
     pos, keep = _dispatch_indices(ids, E, capacity)
     if DROP_LOG is not None:
         DROP_LOG.append(keep)
+    xe = copy_to_model(x2d, mesh) if tp else x2d
     # kept assignments at unique (expert, position); dropped ones at the
     # spare position ``capacity``, cut off before the exchange
     buf = x.new_zeros((E, capacity + 1, D))
     buf[ids, torch.where(keep, pos, capacity)] = \
-        x2d[:, None, :].expand(t, top_k, D)
-    send = buf[:, :capacity].reshape(n_data, e_loc, capacity, D).contiguous()
-    data = axis_group(mesh, "data")
+        xe[:, None, :].expand(t, top_k, D)
+    send = buf[:, :capacity].reshape(n_data, e_loc, capacity, D)
     # dispatch: slab j of every rank goes to rank j, which then holds the
     # tokens of every rank for its own experts
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=data)
+    recv = all_to_all(send, mesh, "data")
     recv = recv.transpose(0, 1).reshape(e_loc, n_data * capacity, D)
     out_loc = _expert_ffn(w["w1"], w["w3"], w["w2"], recv, act)
-    if "model" in axis_names(mesh):
-        dist.all_reduce(out_loc, group=axis_group(mesh, "model"))
+    if tp:
+        out_loc = reduce_from_model(out_loc, mesh)
     # return: the reverse exchange
     back = out_loc.reshape(e_loc, n_data, capacity, D).transpose(0, 1)
-    ret = torch.empty_like(send)
-    dist.all_to_all_single(ret, back.contiguous(), group=data)
-    ret = ret.reshape(E, capacity, D)
+    ret = all_to_all(back, mesh, "data").reshape(E, capacity, D)
     gathered = ret[ids, torch.where(keep, pos, 0)]         # [t, K, D]
     gathered = torch.where(keep[..., None], gathered.float(), 0.0)
     out = (gathered * weights[..., None]).sum(-2).to(x.dtype)
     return out.reshape(b_loc, S, D), _aux_loss(logits, ids, E)
 
 
-def moe_apply_tp_smap(params, x: torch.Tensor, *, top_k: int,
-                      capacity_factor: float, act: str = "silu", mesh,
-                      dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tensor-parallel MoE over this rank's rows x [B_loc, S, D], the
-    ``model`` all-reduce after the per-token combine."""
-    _forward_only(params, x, "tp_smap")
-    b_loc, S, D = x.shape
-    E = params["w1"].shape[0]
-    row_cf = capacity_factor * ROW_CAPACITY_SCALE
-    capacity = max(int(S * top_k * row_cf / E), 8)
-    w = _local_weights(params, "tp_smap", mesh)   # w1 [E, D, F_loc]
+def _moe_model_sum(w, x: torch.Tensor, *, top_k: int, capacity: int,
+                   act: str, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row MoE over d_ff slices, the partial outputs summed over
+    ``model`` after the combine -> (out, this rank's aux loss)."""
+    b_loc, S, _ = x.shape
+    E = w["router"].shape[1]
     out, logits, ids = _moe_tokens(w, x, top_k=top_k, capacity=capacity,
-                                   act=act)       # partial over d_ff
-    model = axis_group(mesh, "model")
-    dist.all_reduce(out, group=model)             # combined, not buffer
+                                   act=act, tp_mesh=mesh)
+    out = reduce_from_model(out, mesh)            # combined, not buffer
     aux = _aux_loss(logits.reshape(b_loc * S, E),
                     ids.reshape(b_loc * S, top_k), E)
-    dist.all_reduce(aux, group=model)
-    return out, aux / axis_size(mesh, "model")
+    return out, aux
+
+
+def moe_apply_tp_smap(params, x: torch.Tensor, *, top_k: int,
+                      capacity_factor: float, act: str = "silu", mesh,
+                      dp_spec=None, sharded: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor-parallel MoE over this rank's rows x [B_loc, S, D], the
+    ``model`` sum after the per-token combine."""
+    S = x.shape[1]
+    E = params["router"].shape[1]
+    row_cf = capacity_factor * ROW_CAPACITY_SCALE
+    capacity = max(int(S * top_k * row_cf / E), 8)
+    w = _local_weights(params, "tp_smap", mesh, sharded)  # [E, D, F_loc]
+    out, aux = _moe_model_sum(w, x, top_k=top_k, capacity=capacity,
+                              act=act, mesh=mesh)
+    return out, mean_over(aux, mesh, "model")
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int, capacity_factor: float,
               strategy: str = "tp_dense", act: str = "silu", mesh=None,
-              dp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              dp_spec=None, sharded: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN by strategy name, with the JAX package's dispatch: a
     mesh whose ``data`` axis is larger than 1 runs ``ep_a2a`` for it; a
     ``model`` axis larger than 1 with a batch spec runs ``tp_smap`` for
-    ``tp_dense`` and ``tp_smap``; everything else runs ``tp_dense``."""
+    ``tp_dense`` and ``tp_smap``; everything else runs ``tp_dense``
+    (over d_ff slices summed over ``model`` when ``sharded`` weights are
+    cut there)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown MoE strategy {strategy!r}")
     kw = dict(top_k=top_k, capacity_factor=capacity_factor, act=act)
@@ -276,9 +304,14 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int, capacity_factor: float,
         sizes = mesh_shape(mesh)
         if strategy == "ep_a2a" and sizes.get("data", 1) > 1:
             return moe_apply_ep_a2a(params, x, mesh=mesh, dp_spec=dp_spec,
-                                    **kw)
+                                    sharded=sharded, **kw)
         if strategy in ("tp_dense", "tp_smap") and sizes["model"] > 1 \
                 and dp_spec is not None:
             return moe_apply_tp_smap(params, x, mesh=mesh, dp_spec=dp_spec,
-                                     **kw)
+                                     sharded=sharded, **kw)
+        if sharded and sizes["model"] > 1:
+            E = params["router"].shape[1]
+            return _moe_model_sum(
+                params, x, top_k=top_k, act=act, mesh=mesh,
+                capacity=row_capacity(x.shape[1], top_k, capacity_factor, E))
     return moe_apply_tp_dense(params, x, **kw)

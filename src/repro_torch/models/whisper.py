@@ -20,6 +20,10 @@ On the card: the encoder's bidirectional attention, the cross-attention
 prefill run the dense flash kernel; decode steps run the dense decode
 kernel over the self cache.  ``WhisperModel(rcfg, device=...)`` runs on
 the CUDA device by default and raises when none is present.
+``state_specs`` gives the logical specs of the serving states, the JAX
+package's.  With ``mesh=`` and ``sharded=True`` over a ``model`` axis
+larger than 1 the entry points raise: whisper's layers are not
+tensor-parallel yet.
 """
 from __future__ import annotations
 
@@ -28,22 +32,32 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..config import ResolvedConfig
+from ..distributed.compat import mesh_shape
 from .attention import (_proj, attention_apply, init_attention,
                         init_kv_cache, spec_attention)
 from .layers import (embed_apply, init_embed, init_layernorm, init_mlp2,
                      layernorm_apply, lm_head_apply, mlp2_apply,
                      sinusoidal_positions, spec_embed, spec_layernorm,
                      spec_mlp2)
+from .blocks import tp_unported
 from .model import token_xent
 from .runtime import DTYPES, DeviceLike, resolve_device
 
 
 class WhisperModel:
-    def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda"):
+    def __init__(self, rcfg: ResolvedConfig, device: DeviceLike = "cuda",
+                 mesh=None, sharded: bool = False):
         if not rcfg.base.encoder_layers:
             raise ValueError(f"{rcfg.base.name}: no encoder layers")
         self.rcfg = rcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sharded = sharded and mesh is not None
+
+    def _check_tp(self) -> None:
+        """Whisper's layers take no model axis larger than 1 yet."""
+        if self.sharded and mesh_shape(self.mesh).get("model", 1) > 1:
+            raise NotImplementedError(tp_unported(self.rcfg.base.name))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -111,6 +125,19 @@ class WhisperModel:
             "dec": [dict(dec) for _ in range(self.n_dec)],
             "dec_norm": spec_layernorm(),
         }
+
+    def state_specs(self, *, batch_sharded: bool, seq_sharded: bool = False
+                    ) -> Dict[str, Any]:
+        """Logical specs of ``state_shapes``' leaves, the JAX package's:
+        self-attention caches shard their KV heads over ``tp`` when they
+        divide, cross caches always (they hold every query head)."""
+        dp = "dp" if batch_sharded else None
+        kv = "tp" if self.rcfg.padded_kv_heads >= self.rcfg.tp else None
+        self_kv = [{"k": (dp, None, kv, None), "v": (dp, None, kv, None)}
+                   for _ in range(self.n_dec)]
+        cross = [{"k": (dp, None, "tp", None), "v": (dp, None, "tp", None)}
+                 for _ in range(self.n_dec)]
+        return {"self": self_kv, "cross": cross}
 
     # ---------------------------------------------------------------- states
     def state_shapes(self, batch: int, s_alloc: int
@@ -181,6 +208,7 @@ class WhisperModel:
     def forward(self, params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward -> (logits [B, S, V] f32, aux = 0)."""
+        self._check_tp()
         cross = self._cross_kv(params, self.encode(params,
                                                    batch["frame_emb"]))
         tokens = batch["tokens"]
@@ -203,6 +231,7 @@ class WhisperModel:
                 s_alloc: Optional[int] = None):
         """Encode, then teacher-force the prompt into self caches of
         ``s_alloc`` positions -> (last-token logits [B, V], states)."""
+        self._check_tp()
         cross = self._cross_kv(params, self.encode(params,
                                                    batch["frame_emb"]))
         tokens = batch["tokens"]
@@ -226,6 +255,7 @@ class WhisperModel:
                     pos: torch.Tensor):
         """tokens [B], pos [B] -> (logits [B, V], states); the self caches
         take the token's K/V at ``pos`` in place."""
+        self._check_tp()
         x = self._embed(params, tokens[:, None], pos[:, None])
         for lp, sc, ckv in zip(params["dec"], states["self"],
                                states["cross"]):

@@ -15,12 +15,29 @@ gradients are mean-reduced over ``data`` in f32 (``dp_reduce_grads``);
 over ``pod`` too, or, with ``compress_pod_grads`` and a pod axis larger
 than 1, through ``collectives.compressed_psum`` leaf by leaf (the
 reference's ``_pod_compressed_grads``: int8 on the slowest hop, its
-error feedback re-derived each step).  Ranks along ``model`` hold the
-same batch shard and compute the same gradients: dense parameters are
-replicated over ``model`` here, where the JAX package lets GSPMD shard
-them by ``param_specs`` (tensor parallelism is not ported).  The model
-itself runs without a mesh (its MoE mesh strategies are forward only).
-With ``mesh=None`` the step is the single-device one.
+error feedback re-derived each step).  The model itself runs without a
+mesh there: ranks along ``model`` compute the same gradients.  This
+step stays beside the sharded one below because ``launch/train.py``,
+its collective checkpoints and their tests feed every rank the global
+batch and keep replicated moments (ROADMAP Queue 1).
+
+A model built with ``sharded=True`` (``LM(..., mesh=, sharded=True)``,
+the step ``launch/specs.build_case`` gives) takes the sharded step, the
+reference's GSPMD step made explicit.  Every rank passes its OWN batch
+shard and holds the parameters as its ``local_shard``s of
+``tree_pspecs(model.param_specs())``: over a ``model`` axis larger than
+1 the layers are tensor-parallel, and the gradients of ``model``-sharded
+leaves stay local (the collectives of the layers leave every rank the
+complete gradient of what it holds).  ``zero_reduce_grads`` then takes
+the data-axis mean in f32, in rank order: as a reduce-scatter onto the
+rank's ZeRO-1 slice where the leaf has one (``optimizer.zero_layout``),
+as a division alone for expert slices sharded over ``data`` (the
+all-to-all's backward has already summed every rank's tokens into
+them), as an all-reduce otherwise; the pod hop follows as above.  AdamW
+updates the slices and all-gathers them (``optimizer``).  Over one rank
+it is the mesh-less step bit for bit.
+With ``mesh=None`` and an unsharded model the step is the single-device
+one.
 
 ``TrainDriver`` is the fault-tolerant loop: periodic async checkpoints,
 restart from the latest, and a ``distributed.fault.HeartbeatMonitor``.
@@ -34,12 +51,15 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from ..distributed.collectives import compressed_psum
+from ..distributed.collectives import compressed_psum, group_sum, \
+    reduce_scatter
 from ..distributed.compat import axis_group, axis_names, mesh_shape
-from ..distributed.sharding import batch_pspec, local_shard
+from ..distributed.sharding import batch_pspec, local_shard, spec_axes, \
+    tree_pspecs
 from ..models.convert import jax_ndims
 from ..tree import leaves, tree_map
-from .optimizer import OptimizerConfig, adamw_update
+from .optimizer import OptimizerConfig, ZeroLayout, adamw_update, \
+    zero_layout
 
 
 @dataclass(frozen=True)
@@ -88,25 +108,56 @@ def dp_reduce_grads(grads: Any, mesh, compress_pod: bool = False) -> Any:
     """Mean of every rank's gradients over the mesh's dp axes: ``data`` in
     f32, then ``pod`` in f32 or, with ``compress_pod``, through
     ``compressed_psum`` (int8 payload with error feedback)."""
-    names = axis_names(mesh)
-    if "data" in names:
+    if "data" in axis_names(mesh):
         grads = tree_map(lambda g: _mean_over(g, mesh, "data"), grads)
-    if "pod" in names:
-        if compress_pod and mesh_shape(mesh)["pod"] > 1:
-            grads = tree_map(
-                lambda g: compressed_psum(g, mesh, "pod")[0], grads)
-        else:
-            grads = tree_map(lambda g: _mean_over(g, mesh, "pod"), grads)
-    return grads
+    it = iter(_pod_hop(leaves(grads), mesh, compress_pod))
+    return tree_map(lambda _: next(it), grads)
+
+
+def _pod_hop(grads: list, mesh, compress_pod: bool) -> list:
+    if "pod" not in axis_names(mesh):
+        return grads
+    if compress_pod and mesh_shape(mesh)["pod"] > 1:
+        return [compressed_psum(g, mesh, "pod")[0] for g in grads]
+    return [_mean_over(g, mesh, "pod") for g in grads]
+
+
+def zero_reduce_grads(grads: Any, layout: ZeroLayout,
+                      compress_pod: bool = False) -> Any:
+    """The data-axis mean of a sharded step's gradients, each leaf as its
+    ZeRO-1 layout holds it (module docstring), then the pod hop."""
+    mesh = layout.mesh
+    n = mesh_shape(mesh).get("data", 1)
+    out = []
+    for g, zl in zip(leaves(grads), layout.leaves):
+        if n > 1:
+            group = axis_group(mesh, "data")
+            f = g.float()
+            if "data" in spec_axes(zl.spec):
+                f = f / n
+            elif zl.dim is not None:
+                f = reduce_scatter(f, group, zl.dim) / n
+            else:
+                f = group_sum(f, group) / n
+            g = f.to(g.dtype)
+        out.append(g)
+    it = iter(_pod_hop(out, mesh, compress_pod))
+    return tree_map(lambda _: next(it), grads)
 
 
 def make_train_step(model, mesh: Optional[Any] = None,
                     tc: TrainConfig = TrainConfig()) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``params`` and the moments are updated in place.  With a
-    ``mesh`` the step is data-parallel over it (module docstring)."""
+    ``mesh`` the step is data-parallel over it; a ``sharded`` model takes
+    the sharded step over its own mesh (module docstring)."""
+    if getattr(model, "sharded", False):
+        if mesh is not None and mesh is not model.mesh:
+            raise ValueError("a sharded model's step runs over its mesh")
+        mesh = model.mesh
     loss_fn = make_loss_fn(model)
     ndims = None
+    layout = None
 
     def value_and_grad(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -128,20 +179,26 @@ def make_train_step(model, mesh: Optional[Any] = None,
         return loss_sum * inv, tree_map(lambda g: g * inv, acc)
 
     def step(params, opt_state, batch):
-        nonlocal ndims
+        nonlocal ndims, layout
         if ndims is None:
             ndims = jax_ndims(params, model.rcfg)
+            if getattr(model, "sharded", False):
+                layout = zero_layout(
+                    params, tree_pspecs(model.param_specs(), mesh), mesh)
         batch = batch_to_device(batch, model.device)
-        if mesh is not None:
+        if mesh is not None and layout is None:
             batch = local_batch(batch, mesh)
         loss, grads = grads_of(params, batch)
-        if mesh is not None:
+        if layout is not None:
+            grads = zero_reduce_grads(grads, layout, tc.compress_pod_grads)
+        elif mesh is not None:
             grads = dp_reduce_grads(grads, mesh, tc.compress_pod_grads)
+        if mesh is not None:
             for a in ("data", "pod"):
                 if a in axis_names(mesh):
                     loss = _mean_over(loss, mesh, a)
         params, opt_state, metrics = adamw_update(tc.opt, params, grads,
-                                                  opt_state, ndims)
+                                                  opt_state, ndims, layout)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

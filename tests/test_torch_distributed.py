@@ -47,6 +47,8 @@ SP = dict(B=2, H=8, KV=2, S=256, Dh=64)
 # exceed, so 0.5 is the case where it drops
 MOE_CFS = (8.0, 1.25, 0.5)
 MOE = dict(d=16, f=32, E=4, k=2, B=8, S=16)
+MOE_W = ("router", "w1", "w3", "w2")
+AUX_W = 0.5              # the aux loss's weight in the gradient objective
 F32 = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -68,6 +70,7 @@ def _inputs():
         "router": n(d, E) / np.sqrt(d), "w1": n(E, d, f) / np.sqrt(d),
         "w3": n(E, d, f) / np.sqrt(d), "w2": n(E, f, d) / np.sqrt(f),
         "moe_x": 0.3 * n(MOE["B"], MOE["S"], d) + 0.8 * skew,
+        "moe_ct": n(MOE["B"], MOE["S"], d),
     }
     return {k: v.astype(np.float32) for k, v in x.items()}
 
@@ -173,6 +176,18 @@ def _jax_side(out_path):
                         jnp.concatenate([ids for ids, _, _ in rows]), E)))
             out[f"moe_{strat}_{cf}_keep"] = np.stack(keeps)
             out[f"moe_{strat}_{cf}_aux"] = np.stack(auxes)
+            # gradients of sum(y * ct) + AUX_W * aux through the strategy
+            f = functools.partial(fn, top_k=k, capacity_factor=cf,
+                                  mesh=mesh, dp_spec=P("data", None, None))
+
+            def obj(p, xx, f=f):
+                y, aux = f(p, xx)
+                return jnp.sum(y * x["moe_ct"]) + AUX_W * aux
+            gp, gx = jax.jit(jax.grad(obj, argnums=(0, 1)))(
+                params, x["moe_x"])
+            for name in MOE_W:
+                out[f"moe_{strat}_{cf}_d{name}"] = np.asarray(gp[name])
+            out[f"moe_{strat}_{cf}_dx"] = np.asarray(gx)
     np.savez(out_path, **out)
 
 
@@ -208,7 +223,7 @@ def _rank_body(rank, world, out_dir):
         out[f"sp_{v}"] = tcol.sp_decode_attention(
             x["sp_q"], k_loc, v_loc, torch.from_numpy(_sp_lens(v)), mesh,
             scale)
-    params = {k: x[k] for k in ("router", "w1", "w3", "w2")}
+    params = {k: x[k] for k in MOE_W}
     x_loc = ls(x["moe_x"], "data", None, None)
     for cf in MOE_CFS:
         for strat, fn in (("ep", tmoe.moe_apply_ep_a2a),
@@ -219,7 +234,36 @@ def _rank_body(rank, world, out_dir):
             out[f"moe_{strat}_{cf}"], out[f"moe_{strat}_{cf}_aux"] = y, aux
             out[f"moe_{strat}_{cf}_keep"] = tmoe.DROP_LOG[0]
             tmoe.DROP_LOG = None
+            out.update(_moe_grads(strat, fn, cf, params, x, mesh))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _moe_grads(strat, fn, cf, params, x, mesh):
+    """The gradients of ``sum(y * ct) + AUX_W * aux / n_data`` summed over
+    the data ranks (the objective JAX differentiates: its ``aux`` is the
+    mean of the shards'), through the strategy on this rank's weight
+    slices (``sharded=True``), gathered to full arrays."""
+    from repro_torch.distributed.compat import axis_group
+    spec = tmoe.spec_moe("ep_a2a" if strat == "ep" else "tp_smap")
+    pspecs = {k: tsh.logical_to_pspec(spec[k], mesh) for k in MOE_W}
+    w = {k: tsh.local_shard(params[k], pspecs[k], mesh).requires_grad_(True)
+         for k in MOE_W}
+    xl = tsh.local_shard(x["moe_x"], ("data", None, None), mesh)
+    xl.requires_grad_(True)
+    y, aux = fn(w, xl, top_k=MOE["k"], capacity_factor=cf, mesh=mesh,
+                dp_spec=("data", None, None), sharded=True)
+    ct = tsh.local_shard(x["moe_ct"], ("data", None, None), mesh)
+    obj = (y * ct).sum() + AUX_W * aux / MESH[0][0]
+    grads = torch.autograd.grad(obj, [w[k] for k in MOE_W] + [xl])
+    data = axis_group(mesh, "data")
+    out = {}
+    for k, g in zip(MOE_W, grads):
+        if "data" not in tsh.spec_axes(pspecs[k]):
+            g = tcol.group_sum(g, data)      # a replicated leaf's ranks
+        out[f"moe_{strat}_{cf}_d{k}"] = tsh.gather_full(g, pspecs[k], mesh)
+    out[f"moe_{strat}_{cf}_dx"] = tsh.gather_full(
+        grads[-1], ("data", None, None), mesh)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -237,8 +281,8 @@ def results(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         run_world(_rank_body, WORLD, str(d), device_type="cpu",
-                  init_method=f"file://{d / 'rdv'}", timeout_s=120.0)
-        log, _ = jax_proc.communicate(timeout=120)
+                  init_method=f"file://{d / 'rdv'}", timeout_s=240.0)
+        log, _ = jax_proc.communicate(timeout=240)
     finally:
         jax_proc.kill()
     assert jax_proc.returncode == 0, log
@@ -379,14 +423,24 @@ def test_moe_cases_drop_where_they_should(results):
         assert jx[f"moe_{strat}_8.0_keep"].all(), strat
 
 
-def test_moe_mesh_strategies_are_forward_only():
-    x = _inputs()
-    params = {k: torch.from_numpy(x[k]).requires_grad_(True)
-              for k in ("router", "w1", "w3", "w2")}
-    mesh = MeshShape(*MESH)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tmoe.moe_apply_tp_smap(params, torch.from_numpy(x["moe_x"]),
-                               top_k=2, capacity_factor=1.0, mesh=mesh)
+@pytest.mark.parametrize("cf", MOE_CFS)
+@pytest.mark.parametrize("strat", ["ep", "tp"])
+def test_moe_mesh_strategy_gradients_match_jax(results, strat, cf):
+    """Input and weight gradients through ``moe_apply_ep_a2a`` /
+    ``moe_apply_tp_smap`` on the ranks' slices (the all-to-all's backward,
+    ``copy_to_model`` and ``reduce_from_model``), gathered, against
+    ``jax.grad`` through the reference's ``shard_map`` strategies, to
+    1e-5; every rank gathers the same bits."""
+    jx, ranks = results
+    key = f"moe_{strat}_{cf}"
+    for part in [f"d{k}" for k in MOE_W] + ["dx"]:
+        want = jx[f"{key}_{part}"]
+        got = _np(ranks[0][f"{key}_{part}"])
+        np.testing.assert_allclose(got, want, **F32, err_msg=part)
+        assert np.abs(want).max() > 0, part
+        for r in range(1, WORLD):
+            assert torch.equal(ranks[r][f"{key}_{part}"],
+                               ranks[0][f"{key}_{part}"]), (part, r)
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +483,13 @@ def _plain(tree):
 @pytest.mark.parametrize("tp", [1, 2, 16])
 @pytest.mark.parametrize("arch", [
     "gemma3_27b", "minitron_4b", "llama3_2_1b", "qwen3_1_7b", "qwen2_vl_2b",
-    "phi3_5_moe", "whisper_base", "xlstm_350m", "recurrentgemma_2b"])
+    "phi3_5_moe", "dbrx_132b", "whisper_base", "xlstm_350m",
+    "recurrentgemma_2b"])
 def test_tree_pspecs_match_jax(arch, tp):
-    """``tree_pspecs(param_specs())`` of every arch's full config, on four
-    meshes, equals the JAX package's on an ``AbstractMesh`` with the
-    stacked lead axis dropped."""
+    """``tree_pspecs`` of every arch's full config, of its parameters and
+    of its states (whisper's included), on four meshes, equals the JAX
+    package's on an ``AbstractMesh`` with the stacked lead axis
+    dropped."""
     pytest.importorskip("jax")
     from jax.sharding import AbstractMesh
     from repro.config import resolve
@@ -464,8 +520,6 @@ def test_tree_pspecs_match_jax(arch, tp):
                     "final_norm": _plain(jt["final_norm"]),
                     "layers": _plain(_jax_layers_as_port(jt, jm.n_rep))}
         assert tt == want, (arch, shape)
-        if cfg.family == "audio":
-            continue
         for bs in (False, True):
             for ss in (False, True):
                 js = jsh.tree_pspecs(jm.state_specs(
@@ -473,8 +527,134 @@ def test_tree_pspecs_match_jax(arch, tp):
                     AbstractMesh(shape, axes))
                 ts = tsh.tree_pspecs(tm.state_specs(
                     batch_sharded=bs, seq_sharded=ss), MeshShape(shape, axes))
-                assert ts == _plain(_jax_layers_as_port(js, jm.n_rep)), \
-                    (arch, shape, bs, ss)
+                want = _plain(js) if cfg.family == "audio" else \
+                    _plain(_jax_layers_as_port(js, jm.n_rep))
+                assert ts == want, (arch, shape, bs, ss)
+
+
+PROD_MESHES = [((16, 16), ("data", "model")),
+               ((2, 16, 16), ("pod", "data", "model"))]
+
+
+def _shard_shape(shape, pspec, sizes):
+    out = []
+    for d, dim in enumerate(shape):
+        e = pspec[d] if d < len(pspec) else None
+        n = 1
+        for a in ((e,) if isinstance(e, str) else (e or ())):
+            n *= sizes[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+def _jax_local(structs, pspecs, sizes):
+    """ShapeDtypeStructs at one device's shard shapes."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    return jax.tree.map(
+        lambda p, s: jax.ShapeDtypeStruct(_shard_shape(s.shape, tuple(p),
+                                                       sizes), s.dtype),
+        pspecs, structs, is_leaf=lambda t: isinstance(t, P))
+
+
+def _unstack_structs(tree, n_rep):
+    """A stacked JAX tree of ShapeDtypeStructs in the port's per-layer
+    layout (the lead axis of the stage leaves dropped)."""
+    import jax
+    layers = [jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape[1:],
+                                                          s.dtype), stage)
+              for _ in range(n_rep) for stage in tree["stages"]]
+    return layers + list(tree["tail"])
+
+
+def _shapes(tree):
+    from repro_torch.tree import leaves_with_paths
+    return {k: tuple(t.shape) for k, t in leaves_with_paths(tree)}
+
+
+@pytest.mark.parametrize("arch", [
+    "gemma3_27b", "minitron_4b", "llama3_2_1b", "qwen3_1_7b", "qwen2_vl_2b",
+    "phi3_5_moe", "dbrx_132b", "whisper_base", "xlstm_350m",
+    "recurrentgemma_2b"])
+def test_build_case_local_shapes_match_jax(arch):
+    """``launch/specs.build_case``'s meta stand-ins, for every supported
+    shape of the arch's full config on both production meshes, have one
+    rank's shard shapes of the JAX package's layout: parameters and serve
+    states by ``tree_pspecs`` (the stacked lead axis dropped), the batch
+    by its ``_batch_pspecs``, decode tokens by ``batch_pspec``; the ZeRO-1
+    moments by its ``zero_pspec`` of each port leaf's global shape (the
+    port has no stacked layer axis to put ``data`` on)."""
+    pytest.importorskip("jax")
+    import jax
+    from jax.sharding import AbstractMesh, PartitionSpec as P
+    from repro.config import SHAPES, resolve
+    from repro.configs import get_config
+    from repro.distributed import sharding as jsh
+    from repro.launch import specs as jspecs
+    from repro.models.model import LM
+    from repro.models.runtime import Runtime
+    from repro.models.whisper import WhisperModel
+    from repro_torch.launch.specs import build_case
+    from repro_torch.tree import leaves_with_paths
+    cfg = get_config(arch)
+    audio = cfg.family == "audio"
+    rc = resolve(cfg, tp=16)
+    jm = WhisperModel(rc, Runtime()) if audio else LM(rc, Runtime())
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+
+    def as_port(tree):
+        if audio:
+            return tree
+        return {k: v for k, v in tree.items() if k not in ("stages", "tail")} \
+            | {"layers": _unstack_structs(tree, jm.n_rep)}
+
+    def port_states(tree):
+        return tree if audio else _unstack_structs(tree, jm.n_rep)
+
+    for shape, axes in PROD_MESHES:
+        jmesh, tmesh = AbstractMesh(shape, axes), MeshShape(shape, axes)
+        sizes = dict(zip(axes, shape))
+        pspecs = jsh.tree_pspecs(jm.param_specs(), jmesh)
+        want_params = _shapes(as_port(_jax_local(params, pspecs, sizes)))
+        glob = as_port(params)
+        port_specs = _plain(pspecs) if audio else {
+            "embed": _plain(pspecs["embed"]),
+            "final_norm": _plain(pspecs["final_norm"]),
+            "layers": _plain(_jax_layers_as_port(pspecs, jm.n_rep))}
+        for sh_name in cfg.supported_shapes:
+            sh = SHAPES[sh_name]
+            case = build_case(arch, sh_name, tmesh, device="cpu")
+            assert _shapes(case.args[0]) == want_params, (sh_name, shape)
+            batch = jspecs._batch_structs(rc, sh_name)
+            bspecs = jspecs._batch_pspecs(rc, sh_name, jmesh)
+            want_batch = {k: _shard_shape(v.shape, tuple(bspecs[k]), sizes)
+                          for k, v in batch.items()}
+            if sh.kind == "train":
+                spec_of = dict(_spec_leaves(port_specs))
+                for k, g in leaves_with_paths(glob):
+                    z = jsh.zero_pspec(P(*spec_of[k]), g.shape, jmesh)
+                    for part in (case.args[1].mu, case.args[1].nu):
+                        got = _shapes(part)[k]
+                        assert got == _shard_shape(g.shape, tuple(z),
+                                                   sizes), (sh_name, k)
+                assert _shapes(case.args[2]) == want_batch, sh_name
+                continue
+            bs = sh.global_batch % jspecs.dp_size(jmesh) == 0
+            st_specs = jsh.tree_pspecs(jm.state_specs(
+                batch_sharded=bs, seq_sharded=(sh_name == "long_500k")),
+                jmesh)
+            if sh.kind == "prefill":
+                want_batch.pop("labels")
+                assert _shapes(case.args[1]) == want_batch, sh_name
+                continue
+            states = jm.state_shapes(sh.global_batch, sh.seq_len)
+            want_states = _shapes(port_states(_jax_local(states, st_specs,
+                                                         sizes)))
+            assert _shapes(case.args[2]) == want_states, (sh_name, shape)
+            dp = jsh.batch_pspec(jmesh)[0] if bs else None
+            tok = _shard_shape((sh.global_batch,), (dp,), sizes)
+            assert tuple(case.args[1].shape) == tok == \
+                tuple(case.args[3].shape)
 
 
 def test_spec_kv_cache_and_moe_specs_match_jax():
@@ -653,9 +833,7 @@ def cuda():
 @pytest.mark.parametrize("dtype,B,S,Hq,Hkv,Dh", [
     (dt, *shape) for dt in (torch.float32, torch.bfloat16)
     for shape in ((8, 1088, 32, 8, 64), (2, 256, 8, 2, 64),
-                  (3, 1000, 16, 8, 128))] + [
-    # bf16 only: no f32 cache at head_dim 256 (the kernel raises)
-    (torch.bfloat16, 2, 520, 10, 1, 256)])
+                  (3, 1000, 16, 8, 128), (2, 520, 10, 1, 256))])
 def test_cuda_decode_attention_lse_matches_plain(cuda, dtype, B, S, Hq, Hkv,
                                                  Dh):
     """The kernel's LSE mode at the split-KV chunk edges: m exact where no

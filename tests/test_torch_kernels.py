@@ -31,6 +31,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfla  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)
@@ -887,18 +888,73 @@ def test_cuda_decode_head_dim_256_matches_plain_and_is_batch_invariant(cuda):
             tops.arena_decode_attention(q, ka, va, alone, kl)[b], full[b])
 
 
+def _f32_dh256_case(cuda, seed):
+    """recurrentgemma-2b's local heads (10 / 1, head_dim 256) over an f32
+    ring of 2048 slots held in an arena, kv_len at the chunk edges."""
+    B, S, Hq, Hkv, Dh = 8, 2048, 10, 1, 256
+    N = B + 3
+    q = _dev(_normal(seed, (B, Hq, Dh)), torch.float32, cuda)
+    ka, va = (_dev(a, torch.float32, cuda)
+              for a in _arena(seed + 1, N, S, Hkv, Dh))
+    slots = _dev(np.random.default_rng(seed + 2).permutation(N - 1)[:B]
+                 .astype(np.int32), torch.int32, cuda)
+    kl = _dev(_edge_lens(S), torch.int32, cuda)
+    return q, ka, va, slots, kl
+
+
 @pytest.mark.cuda
-def test_cuda_decode_f32_cache_head_dim_256_raises(cuda):
-    """An f32 cache at head_dim 256 has no decode kernel (a key's row is 64
-    16-byte pieces, more than a warp's lanes): the wrapper raises and never
-    runs the plain version."""
-    q = _dev(_normal(220, (2, 2, 256)), torch.float32, cuda)
-    k = _dev(_normal(221, (2, 64, 1, 256)), torch.float32, cuda)
-    kl = _dev(np.asarray([64, 3], np.int32), torch.int32, cuda)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tdec.decode_attention(q, k, k, kl)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tops.decode_attention(q, k, k, kl)
+@pytest.mark.parametrize("entry", ["dense", "paged", "paged_tables"])
+def test_cuda_decode_f32_cache_head_dim_256_matches_plain(cuda, entry):
+    """An f32 cache at head_dim 256 (a key's row is 64 16-byte pieces, two
+    a lane): dense, by slots and by block tables against the plain
+    version; two calls bitwise; paged == dense bitwise."""
+    q, ka, va, slots, kl = _f32_dh256_case(cuda, 220)
+    bt, tb = None, None
+    if entry == "paged_tables":          # block 0 of every row shared
+        tb = 256
+        bt = _dev(_tables(slots.cpu().numpy(), ka.shape[1] // tb,
+                          shared=ka.shape[0] - 2), torch.int32, cuda)
+    kg, vg = (tref.gather_rows(a, slots, bt, tb) for a in (ka, va))
+    dense = tops.decode_attention(q, kg, vg, kl)
+    if entry == "dense":
+        out = dense
+        plain = tdec.decode_attention_plain(q, kg, vg, kl)
+        again = tops.decode_attention(q, kg, vg, kl)
+    else:
+        out = tops.arena_decode_attention(q, ka, va, slots, kl,
+                                          block_tables=bt)
+        plain = tdec.paged_decode_attention_plain(
+            q, ka, va, slots, kl, block_tables=bt, table_block=tb)
+        again = tops.arena_decode_attention(q, ka, va, slots, kl,
+                                            block_tables=bt)
+    torch.testing.assert_close(out, plain, **_tol(torch.float32))
+    assert torch.equal(again, out)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_lse_f32_cache_head_dim_256_matches_plain(cuda):
+    """The log-sum-exp mode over the same f32 cache at head_dim 256: m
+    exact where no key is seen and within 1e-5 elsewhere, l within 1e-5
+    relative, acc within 1e-5 of l; two calls bitwise; acc / l bitwise
+    the normal mode's output."""
+    q, ka, va, slots, kl = _f32_dh256_case(cuda, 230)
+    k, v = ka[slots.long()], va[slots.long()]
+    got = tops.decode_attention_lse(q, k, v, kl)
+    want = tdec.decode_attention_lse_plain(q, k, v, kl)
+    assert torch.equal(torch.isneginf(got[..., -1]),
+                       torch.isneginf(want[..., -1]))
+    live = ~torch.isneginf(want[..., -1])
+    torch.testing.assert_close(got[..., -1][live], want[..., -1][live],
+                               atol=1e-5, rtol=0)
+    l = want[..., -2]
+    l_rel = ((got[..., -2] - l).abs() / l.clamp_min(1e-30))[live]
+    assert float(l_rel.max()) <= 1e-5
+    assert float(((got[..., :-2] - want[..., :-2]).abs()
+                  / l.clamp_min(1e-30)[..., None]).max()) <= 1e-5
+    assert torch.equal(tops.decode_attention_lse(q, k, v, kl), got)
+    norm = got[..., :-2] / got[..., -2:-1].clamp_min(1e-30)
+    assert torch.equal(norm, tops.decode_attention(q, k, v, kl))
 
 
 @pytest.mark.cuda

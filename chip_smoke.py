@@ -74,6 +74,14 @@ non-zero without printing a result:
             after it; every document must resolve, the kernel launch counts
             must match the launches the server made, and preds, confs and
             per-document $ must be bitwise equal across the three runs.
+            ``serve [seed engine]``: the same models and corpus through
+            the port's ``SeedCascadeEngine`` (per-document dict cache,
+            every prefill and extend through the flash kernel) and its
+            arena ``CascadeEngine.run`` on the forced ladder of
+            ``benchmarks/serve_engine.py`` (thresholds 2.0, batch 8):
+            every document resolved in both, new and cached tokens,
+            batches and $ the same; the preds' agreement, docs/s and
+            ``host_overhead_s`` of each.
             ``serve [prefix]``: the same queries over longer operations on
             the doc-before-op plane and on the prefix plane at layout
             blocks 16 and 512, inflight 1 and 3: all resolved, kernel
@@ -210,13 +218,38 @@ non-zero without printing a result:
             the flash and decode kernels counted.  ``train
             [whisper-base]``: 5 steps of ``make_train_step`` on 448-token
             sequences with seeded ``frame_emb``.
+            ``dryrun [cells]``: ``python -m repro_torch.launch.dryrun
+            --all --mesh single`` (a subprocess; every supported (arch x
+            shape) cell on the 16 x 16 mesh of a fake world, each in a
+            process of its own), its roofline table at this card's peaks
+            (``launch.roofline.card_peaks``), FAILED rows with their
+            exceptions; every attention decoder's cell but gemma3's
+            ``long_500k`` must run.  Then the world-1 cells: each
+            attention decoder's ``decode_32k`` and ``prefill_32k`` cut to
+            one repetition of its block pattern, counted by the dry-run
+            on a 1 x 1 mesh; a ``prefill_32k`` cell whose estimate
+            exceeds ``WORLD1_FIT`` of the card is counted again with its
+            batch cut (halved from 32 until the estimate fits); those
+            that fit run on it over an NCCL world of one.  Each cell's
+            first step records the arguments and result of its kernel's
+            first launch at each distinct shape: a second call must give
+            the same bits, and the result must lie within ``DECODE_TOL``
+            (decode, also at a ragged ``kv_len``) or ``EXTEND_TOL``
+            (prefill, on ``WORLD1_PLAIN_QROWS`` query rows at the start,
+            middle and end of the first and last sequence) of the plain
+            version on the same tensors.  Then FLOPs, bytes, memory, the
+            roofline bound, the median step, the share of the roofline
+            and the measured peak over the estimate (within
+            ``WORLD1_MEM_BAND``), finite logits, the kernel's launches.
 7. the script's wall time, a ``{"kernels": [...]}`` JSON line (launches:
-   the serving, prefix (block 16, inflight 1), chaos, gemma3-oracle
+   the serving, the seed and arena engines' timed runs, prefix (block
+   16, inflight 1), chaos, gemma3-oracle
    (inflight 1), the families' model checks, moe-oracle and recurrent
    serving (inflight 1), the f32 recurrentgemma check, dbrx's model check
    and serving, build, llama3.2-1b and dbrx training, the distributed
-   phase's data-parallel steps and sp-decode LM, and whisper's model
-   check and training runs, each counted from zero;
+   phase's data-parallel steps and sp-decode LM, whisper's model check
+   and training runs, and the world-1 dry-run cells, each counted from
+   zero; bounds from each kernel module's ``work`` at the card's peaks;
    ``relevance_score`` also carries ``stream_ms``), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -224,10 +257,12 @@ It imports only ``repro_torch`` (from ``src/`` beside this file).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -239,9 +274,6 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor rate
-PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 # Kernel against plain version, bf16 outputs.  rtol 2**-7 is one bf16 ulp
 # of the output (both sides round f32 to bf16, so a value near a rounding
 # edge may land one ulp apart).  Decode accumulates in f32 exactly as its
@@ -343,6 +375,37 @@ FAMILY_CUT_WHY["dbrx_132b"] = (
 # 1e-3 keeps a margin of more than 10x over that.
 RG_F32_TOL = 1e-3
 RG_F32_PREFILL = 1024
+# ``serve [seed engine]``: the static comparison of
+# benchmarks/serve_engine.py (its operations, its rates, thresholds 2.0 so
+# every document walks the whole ladder) at full width, batch 8.  Both
+# engines size caches for the 1024-token bucket plus 64 positions of
+# operation suffix (the arena's ``op_reserve``).
+SEED_OPS = {"o_orig": "does this opinion overturn a lower court decision",
+            "sur_1": "is any lower court mentioned"}
+SEED_RATES = {"proxy": 0.06, "oracle": 1.0}
+SEED_S_ALLOC = 1024 + 64
+# ``dryrun [cells]``: processes at once, each cell's limit, and the whole
+# ``--all`` call's
+DRYRUN_JOBS = 8
+DRYRUN_CELL_TIMEOUT_S = 120
+DRYRUN_ALL_TIMEOUT_S = 300
+# World-1 cells run on the card where the dry-run's own estimate (its
+# arguments plus its peak of temporaries) fits this share of the card;
+# their measured peak over that estimate must lie in this band, set in
+# PERF.md before the first reading (measured 1.0008-1.0154 on the H100):
+# the dry-run tracks every storage the step allocates, so only the
+# allocator's rounding and library workspaces separate the two.
+WORLD1_FIT = 0.7
+WORLD1_MEM_BAND = (0.9, 1.15)
+WORLD1_ARCHS = ("llama3_2_1b", "qwen3_1_7b", "minitron_4b", "qwen2_vl_2b",
+                "gemma3_27b", "phi3_5_moe", "dbrx_132b")
+WORLD1_REPS = {"decode_32k": 10, "prefill_32k": 3}
+# the plain versions run on slices of a world-1 cell's kernel inputs: this
+# many sequences at once for decode (the f32 GQA-expanded cache of 4
+# sequences is 2.1 GB at gemma3's heads), this many query rows of one
+# sequence for prefill (scores of 256 x 32768 keys x 32 heads: 1 GB f32)
+WORLD1_PLAIN_SEQS = 4
+WORLD1_PLAIN_QROWS = 256
 # the seeded chaos drain of tests/test_torch_faults.py
 CHAOS_SEED = 23
 CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
@@ -443,10 +506,13 @@ def head_dim_resources(source: str, res, kinds: dict,
             (source, dh, kind, rs)
 
 
-def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(work, f32: bool = False):
+    """(ms, "bytes" or "operations") of a kernel call's ``work`` (its
+    module's (bytes, operations)) at this card's peaks
+    (``launch.roofline.card_peaks``: the memory rate read from the card,
+    the bf16 or f32 rate from its table)."""
+    from repro_torch.launch.roofline import bound_ms, card_peaks
+    return bound_ms(*work, card_peaks(), f32)
 
 
 def max_err(a, b) -> float:
@@ -537,15 +603,13 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
           f"{edges.tolist()} within tol; two calls and each sequence alone "
           f"bitwise equal to the batch (KV_CHUNK {C})")
 
-    keys = float(kv_len.sum())
-    d_bytes = keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2 + 2 * B * 4
-    d_flops = 4.0 * Hq * Dh * keys
+    d_work = dec.work(B, Hq, Hkv, Dh, S, kv_len=kv_len.tolist(), rows=True)
     qt = q[:, :, None]                                   # [B, Hq, 1, Dh]
     kt, vt = kg.transpose(1, 2), vg.transpose(1, 2)
     mask = sdpa_mask(kv_len, 1, S, 0, False, dev)
     lib = timer.ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    b_ms, b_by = bound(d_bytes, d_flops)
+    b_ms, b_by = bound(d_work)
     rows.append(dict(
         name="paged_decode_attention", source="src/repro_torch/kernels/"
         "csrc/decode_attention.cu",
@@ -617,18 +681,14 @@ def kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, label: str):
                                              q_offset=off, kv_len=kl)
         torch.testing.assert_close(o1.float(), p1.float(), **EXTEND_TOL)
 
-    kl = np.minimum(kv_len.cpu().numpy(), kv_valid)
-    qpos = q_off + np.arange(Sq)
-    pairs = float(sum(np.minimum(qpos + 1, k).sum() for k in kl))
-    e_bytes = (float(kl.sum()) * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2
-               + 2 * B * 4)
-    e_flops = 4.0 * Hq * Dh * pairs
+    e_work = fla.work(B, Sq, Hq, Hkv, Dh, kv_valid, q_offset=q_off,
+                      kv_len=kv_len.tolist(), rows=True)
     qt = q.transpose(1, 2)
     kt, vt = kg.transpose(1, 2), vg.transpose(1, 2)
     mask = sdpa_mask(kv_len, Sq, kv_valid, q_off, True, dev)
     lib = timer.ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    b_ms, b_by = bound(e_bytes, e_flops)
+    b_ms, b_by = bound(e_work)
     rows.append(dict(
         name="paged_flash_attention", source="src/repro_torch/kernels/"
         "csrc/flash_attention.cu",
@@ -710,13 +770,10 @@ def windowed_kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, W: int,
         assert torch.equal(ops.attention(q, k, v, **kw), out), \
             f"{label}: flash two calls differ"
         alone_equal(lambda kk, vv: ops.attention(q, kk, vv, **kw), out, k, v)
-        qpos = q_off + np.arange(Sq)
-        lo = np.maximum(qpos - W + 1, 0)
-        pairs = float(sum(np.clip(np.minimum(qpos + 1, n) - lo, 0, None).sum()
-                          for n in kl))
-        keys = float(sum(n - max(q_off - W + 1, 0) for n in kl))
-        f_bytes = keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2 + 4 * B
-        b_ms, b_by = bound(f_bytes, 4.0 * Hq * Dh * pairs)
+        f_work = fla.work(B, Sq, Hq, Hkv, Dh, Skv, window=W, q_offset=q_off,
+                          kv_len=kl)
+        b_ms, b_by = bound(f_work)
+        pairs = f_work[1] / (4.0 * Hq * Dh)
         mask = window_mask(kv_len, Sq, Skv, q_off, W, dev)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         rows.append(dict(
@@ -731,8 +788,8 @@ def windowed_kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, W: int,
         # the same call without the window: does the mask cost more than
         # the pairs it removes?  (visible pairs per microsecond, both ways)
         nw = dict(kw, window=None)
-        nw_pairs = float(sum(np.clip(np.minimum(qpos + 1, n), 0, None).sum()
-                             for n in kl))
+        nw_pairs = fla.work(B, Sq, Hq, Hkv, Dh, Skv, q_offset=q_off,
+                            kv_len=kl)[1] / (4.0 * Hq * Dh)
         nw_ms = timer.ms(lambda: ops.attention(q, k, v, **nw))
         r = rows[-1]
         print(f"kernel flash_attention [{label}, {case}]: windowed "
@@ -752,9 +809,7 @@ def windowed_kernel_phase(dev, timer, Hq: int, Hkv: int, Dh: int, W: int,
             f"{label}: decode two calls differ"
         alone_equal(lambda kk, vv: ops.decode_attention(q, kk, vv, kv_len),
                     out, k, v)
-        keys = float(sum(kl))
-        b_ms, b_by = bound(keys * Hkv * Dh * 2 * 2 + 2 * q.numel() * 2
-                           + 4 * B, 4.0 * Hq * Dh * keys)
+        b_ms, b_by = bound(dec.work(B, Hq, Hkv, Dh, W, kv_len=kl))
         mask = sdpa_mask(kv_len, 1, W, 0, False, dev)
         qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         rows.append(dict(
@@ -1113,6 +1168,79 @@ def serving_phase():
                 "decode_attention": runs[(False, 1)][1]["decode_attention"],
                 "flash_attention": runs[(False, 1)][1]["flash_attention"]}
     return launches, models, params, docs
+
+
+def seed_engine_phase(models, params, docs):
+    """``serve [seed engine]``: the port's ``SeedCascadeEngine`` (per-doc
+    dict cache, every prefill and extend through the flash kernel) and
+    its arena ``CascadeEngine.run`` over the serving phase's models and
+    corpus on the forced ladder of ``benchmarks/serve_engine.py``, each
+    once to warm up and once timed with the counters zeroed.  Every
+    document resolves in both; new and cached tokens (per stage),
+    batches and $ are the same.  Prints the preds' agreement (bf16 and
+    another batch composition may flip a pred), docs/s and
+    ``host_overhead_s`` of each.  Returns the two runs' launch counts."""
+    from repro_torch.core.tasks import Cascade, Task, TaskConfig
+    from repro_torch.data.tokenizer import HashWordTokenizer
+    from repro_torch.serving.engine import CascadeEngine, LMBackend
+    from repro_torch.serving.legacy_engine import (DictCacheLMBackend,
+                                                   SeedCascadeEngine)
+    from repro_torch.serving.scheduler import RESOLVED
+
+    thr = {0: 2.0, 1: 2.0}
+    ladder = Cascade([Task(TaskConfig("proxy", "sur_1", 0.25), thr),
+                      Task(TaskConfig("proxy", "o_orig", 1.0), thr)])
+    tokz = HashWordTokenizer(vocab_size=128256)
+    kw = {n: dict(name=n, model=models[n], params=params[n], tokenizer=tokz,
+                  rate_per_token=SEED_RATES[n], s_alloc=SEED_S_ALLOC)
+          for n in ("proxy", "oracle")}
+    seed_be = {n: DictCacheLMBackend(**k) for n, k in kw.items()}
+    arena_be = {n: LMBackend(device="cuda", **k) for n, k in kw.items()}
+    seed = SeedCascadeEngine(seed_be, SEED_OPS, n_classes=2, batch_size=8)
+    arena = CascadeEngine(arena_be, SEED_OPS, n_classes=2, batch_size=8,
+                          device="cuda")
+
+    def timed(fn):
+        fn()                                              # warm-up
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _counts(), time.perf_counter() - t0
+
+    (s_pred, s_cost, s_stats), s_counts, s_wall = timed(
+        lambda: seed.run(ladder, docs))
+    res, a_counts, a_wall = timed(lambda: arena.run(ladder, docs))
+    assert set(s_pred) == set(docs), "seed engine: documents missing"
+    assert set(res.status) == set(docs) and all(
+        st == RESOLVED for st in res.status.values()), res.status
+    st, at = s_stats, res.stats
+    assert (st.stage_new_tokens, st.stage_cached_tokens, st.batches) == \
+        (at.stage_new_tokens, at.stage_cached_tokens, at.batches), \
+        (st, at)
+    # $ from the same token counts, summed per batch and per document
+    assert math.isclose(s_cost, res.cost, rel_tol=1e-12), (s_cost, res.cost)
+    assert s_counts["flash_attention"] > 0 and not any(
+        v for k, v in s_counts.items() if k != "flash_attention"), s_counts
+    agree = sum(s_pred[d] == res.pred[d] for d in docs)
+    hosts = [sum(be.host_overhead_s for be in b.values())
+             for b in (seed_be, arena_be)]
+    print(f"serve [seed engine, llama3.2-1b proxy and oracle, forced "
+          f"ladder, {len(docs)} docs, batch 8]: every document resolved in "
+          f"both engines; new tokens {st.total_new_tokens()}, cached "
+          f"{st.total_cached_tokens()} (per stage {st.stage_new_tokens} / "
+          f"{st.stage_cached_tokens}), {st.batches} batches and "
+          f"${s_cost:.6f} (arena ${res.cost:.6f}) the same in both")
+    for name, wall, host, counts in (("seed", s_wall, hosts[0], s_counts),
+                                     ("arena", a_wall, hosts[1], a_counts)):
+        print(f"serve [seed engine, {name}]: {wall:.3f} s "
+              f"({len(docs) / wall:.2f} docs/s), host_overhead_s "
+              f"{host:.4f}, kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"serve [seed engine]: preds agree on {agree} of {len(docs)} "
+          f"documents")
+    return s_counts, a_counts
 
 
 def prefix_kernel_phase(dev, Hq: int, Hkv: int, Dh: int, label: str):
@@ -1948,8 +2076,7 @@ def relevance_phase(dev, timer, restr, docs):
     def row(label, x, lengths):
         C = x.shape[0]
         n = float(torch.clamp(lengths, 0, T).sum())
-        b_ms, b_by = bound(n * D * 4 + 12 * C + 4 * D, 2.0 * n * D,
-                           PEAK_F32_FLOPS)
+        b_ms, b_by = bound(rel.work(C, T, D, lengths.tolist()), f32=True)
         xs = [x] + [x.clone() for _ in range(timer.copies(n * D * 4) - 1)]
         fns = [functools.partial(rel.relevance_score, xi, lengths, w, b)
                for xi in xs]
@@ -2208,8 +2335,7 @@ def whisper_kernel_phase(dev, timer):
         torch.testing.assert_close(out.float(), plain.float(), **EXTEND_TOL)
         assert torch.equal(ops.attention(q, k, v, **kw), out), \
             f"whisper {case}: two calls differ"
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-        b_ms, b_by = bound(nbytes, 4.0 * B * H * Dh * Sq * Skv)
+        b_ms, b_by = bound(fla.work(B, Sq, H, H, Dh, Skv, causal=False))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         rows.append(dict(
             name="flash_attention", case=case,
@@ -2709,9 +2835,7 @@ def lse_shards_phase(dev, timer):
 
     full = torch.tensor([s], dtype=torch.int32, device=dev)
     k0, v0 = shard(k, 0), shard(v, 0)
-    keys = float(s)
-    nbytes = keys * Hkv * Dh * 2 * 2 + q.numel() * 2 + Hq * (Dh + 2) * 4 + 4
-    b_ms, b_by = bound(nbytes, 4.0 * Hq * Dh * keys)
+    b_ms, b_by = bound(dec.work(1, Hq, Hkv, Dh, s, kv_len=[s], lse=True))
     row = dict(
         name="decode_attention_lse", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3432,9 +3556,9 @@ def f32_decode_kernel_phase(dev, timer):
               f"paged == dense and the LSE mode's acc / l == normal "
               f"bitwise")
         if case.startswith("full"):
-            keys = float(sum(kl))
-            b_ms, b_by = bound(keys * Hkv * Dh * 4 * 2 + 2 * q.numel() * 4
-                               + 4 * B, 4.0 * Hq * Dh * keys, PEAK_F32_FLOPS)
+            b_ms, b_by = bound(dec.work(B, Hq, Hkv, Dh, S, kv_len=kl,
+                                        q_itemsize=4, kv_itemsize=4),
+                               f32=True)
             mask = sdpa_mask(kv_len, 1, S, 0, False, dev)
             qs, ks, vs = q[:, :, None], kg.transpose(1, 2), vg.transpose(1, 2)
             sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
@@ -3659,6 +3783,344 @@ def train_dbrx_phase():
     return counts
 
 
+def _world1_args(model, case, shape: str, batch):
+    """Real arguments on the card of the shapes of ``case.args`` (its
+    meta stand-ins): the model's parameters from a seed, random KV caches
+    (decode, every row's tokens at the last cache position) or random
+    tokens (prefill; for qwen2-vl, patch embeddings and their M-RoPE
+    positions before them); ``batch`` is the cell's cut of the global
+    batch."""
+    from repro_torch.config import shape_config
+    from repro_torch.tree import leaves as tree_leaves
+
+    sh = shape_config(shape, batch)
+    B, S = sh.global_batch, sh.seq_len
+    g = torch.Generator(device="cuda").manual_seed(0)
+    vocab = model.rcfg.base.vocab_size
+    params = model.init(seed=0)
+    if sh.kind == "decode":
+        states = model.init_states(B, S)
+        for t in tree_leaves(states):
+            t.normal_(generator=g)
+        tok = torch.randint(vocab, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        args = (params, tok, states,
+                torch.full((B,), S - 1, dtype=torch.int32, device="cuda"))
+    else:
+        n_img = model.rcfg.base.frontend_len
+        tok = torch.randint(vocab, (B, S - n_img), generator=g,
+                            device="cuda", dtype=torch.int32)
+        batch = {"tokens": tok}
+        if n_img:          # qwen2-vl: patches on a square grid, then text
+            batch = _patch_inputs(model, n_img, math.isqrt(n_img), tok, g)
+            batch["positions3"] = batch["positions3"].to(torch.int32)
+        args = (params, batch)
+    got = [(tuple(t.shape), t.dtype) for t in tree_leaves(args)]
+    want = [(tuple(t.shape), t.dtype) for t in tree_leaves(case.args)]
+    assert got == want, "world-1 arguments differ from the case's"
+    return args
+
+
+@contextlib.contextmanager
+def _first_launches(module, name: str):
+    """While the block runs, record ``(args, kwargs, result)`` of the
+    first call of ``module.name`` at each distinct set of argument shapes
+    (the caller reaches it through the module, so the wrapper sees every
+    launch)."""
+    real = getattr(module, name)
+    calls = {}
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        calls.setdefault(tuple(tuple(t.shape) for t in a), (a, kw, out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _world1_decode_check(calls) -> float:
+    """Each recorded ``decode_attention`` launch (q, k, v, kv_len) of a
+    world-1 step: a second call gives the same bits; the result, and one
+    at a ragged ``kv_len`` (0, 1, the split-KV chunk edges, the cache's
+    end, the rest random), within ``DECODE_TOL`` of the plain version on
+    the same tensors, ``WORLD1_PLAIN_SEQS`` sequences at a time.  Returns
+    the largest error."""
+    from repro_torch.kernels import decode_attention as dec
+
+    err = 0.0
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (q, k, v, kv_len), kw, out in calls.values():
+        assert torch.equal(dec.decode_attention(q, k, v, kv_len, **kw),
+                           out), "decode: two calls differ"
+        B, S, C = q.shape[0], k.shape[1], dec.KV_CHUNK
+        ragged = torch.randint(0, S + 1, (B,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        edges = [0, 1, C - 1, C, C + 1, S - 1, S]
+        ragged[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+        r_out = dec.decode_attention(q, k, v, ragged, **kw)
+        for kl, o in ((kv_len, out), (ragged, r_out)):
+            for b0 in range(0, B, WORLD1_PLAIN_SEQS):
+                sl = slice(b0, b0 + WORLD1_PLAIN_SEQS)
+                plain = dec.decode_attention_plain(q[sl], k[sl], v[sl],
+                                                   kl[sl], **kw)
+                torch.testing.assert_close(o[sl].float(), plain.float(),
+                                           **DECODE_TOL)
+                err = max(err, max_err(o[sl], plain))
+                del plain
+    return err
+
+
+def _world1_flash_check(calls) -> float:
+    """Each recorded ``flash_attention`` launch (q, k, v and its keyword
+    arguments) of a world-1 step: a second call gives the same bits; the
+    result's ``WORLD1_PLAIN_QROWS`` query rows at the start, middle and
+    end of the first and last sequence within ``EXTEND_TOL`` of the plain
+    version on the same tensors (those rows at their ``q_offset``).
+    Returns the largest error."""
+    from repro_torch.kernels import flash_attention as fla
+
+    err = 0.0
+    for (q, k, v), kw, out in calls.values():
+        assert torch.equal(fla.flash_attention(q, k, v, **kw), out), \
+            "flash: two calls differ"
+        B, Sq, n = q.shape[0], q.shape[1], WORLD1_PLAIN_QROWS
+        kv_len = kw.get("kv_len")
+        for b in sorted({0, B - 1}):
+            for r0 in sorted({0, max(Sq // 2 - n // 2, 0), max(Sq - n, 0)}):
+                bs, rs = slice(b, b + 1), slice(r0, r0 + n)
+                plain = fla.flash_attention_plain(
+                    q[bs, rs], k[bs], v[bs], causal=kw["causal"],
+                    window=kw["window"], q_offset=kw["q_offset"] + r0,
+                    kv_len=None if kv_len is None else kv_len[bs],
+                    sm_scale=kw["sm_scale"])
+                torch.testing.assert_close(out[bs, rs].float(),
+                                           plain.float(), **EXTEND_TOL)
+                err = max(err, max_err(out[bs, rs], plain))
+                del plain
+    return err
+
+
+def world1_cell(r, mesh, peaks):
+    """One dry-run cell at world 1, cut to one repetition of its block
+    pattern (and, where the dry-run says so, to a smaller batch), run on
+    the card: a first step whose kernel launches are held against the
+    plain version, then ``WORLD1_REPS`` steps, the launches of its kernel
+    counted; the median step wall against the roofline bound, the
+    measured peak against the dry-run's estimate.  Returns the launch
+    counts."""
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.specs import build_case
+
+    arch, shape, batch = r["arch"], r["shape"], r.get("batch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    case = build_case(arch, shape, mesh, n_rep_override=1, device="cuda",
+                      batch_override=batch)
+    model = case.model
+    args = _world1_args(model, case, shape, batch)
+    decode = shape.startswith("decode")
+    kernel = "decode_attention" if decode else "flash_attention"
+    with _first_launches(dec if decode else fla, kernel) as calls:
+        out = case.fn(*args)                              # first step
+    torch.cuda.synchronize()
+    del out
+    shapes = [tuple(tuple(t.shape) for t in a[:3]) for a, _, _ in
+              calls.values()]
+    err = (_world1_decode_check if decode else _world1_flash_check)(calls)
+    tol = DECODE_TOL if decode else EXTEND_TOL
+    print(f"dryrun [world 1, {arch} {shape}]: {kernel} at the step's "
+          f"{len(shapes)} launch shape(s) (q, k, v) {shapes}: two calls "
+          f"bitwise equal; against the plain version on the same tensors"
+          + (" (and at a ragged kv_len)" if decode else
+             f" ({WORLD1_PLAIN_QROWS} query rows at the start, middle and "
+             "end of the first and last sequence)")
+          + f": max_abs_err {err:.3g} (tol atol={tol['atol']:g} "
+          f"rtol={tol['rtol']:g})")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    walls = []
+    for _ in range(WORLD1_REPS[shape]):
+        t0 = time.perf_counter()
+        out = case.fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logits = out[0]
+        assert torch.isfinite(logits).all(), f"{arch} {shape}: not finite"
+        del out
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    calls = r["kernels"][kernel]["calls"]
+    assert counts[kernel] == calls * len(walls) and sum(
+        counts.values()) == counts[kernel], (counts, calls)
+    mem = r["memory"]
+    est = mem["argument_bytes"] + mem["temp_bytes"]
+    ratio = peak / est
+    row = analyze(r, peaks)
+    med = float(np.median(walls))
+    cut_b = "" if batch is None else \
+        f", batch cut to {batch} of {SHAPES[shape].global_batch}"
+    print(f"dryrun [world 1, {arch} {shape}, cut to {len(model.kinds)} of "
+          f"{get_config(arch).num_layers} layers{cut_b}]: dry-run FLOPs "
+          f"{r['flops']:.4g}, "
+          f"bytes {r['bytes_accessed']:.4g}, memory arguments "
+          f"{mem['argument_bytes'] / 1e9:.3f} GB + temporaries "
+          f"{mem['temp_bytes'] / 1e9:.3f} GB = {est / 1e9:.3f} GB; roofline "
+          f"bound {row.bound_step_s * 1e3:.4f} ms ({row.dominant}); measured "
+          f"median {med * 1e3:.4f} ms over {len(walls)} steps "
+          f"(min {min(walls) * 1e3:.4f}), share of roofline "
+          f"{row.bound_step_s / med:.4f}; peak {peak / 1e9:.3f} GB, "
+          f"{ratio:.4f} of the estimate (band {WORLD1_MEM_BAND}); "
+          f"{counts[kernel]} {kernel} launches; logits finite")
+    assert WORLD1_MEM_BAND[0] <= ratio <= WORLD1_MEM_BAND[1], ratio
+    del args, case, model, logits
+    return counts
+
+
+def _world1_batch_cuts(est, fit: float):
+    """{(shape, batch): [arch, ...]} for the ``prefill_32k`` cells of
+    ``est`` whose estimate exceeds ``fit`` bytes: the batch halved from
+    the shape's until the arguments plus the temporaries scaled by the
+    batch fit."""
+    from repro_torch.config import SHAPES
+
+    cuts = {}
+    for r in est:
+        mem = r["memory"]
+        B = SHAPES[r["shape"]].global_batch
+        if r["shape"] != "prefill_32k" or \
+                mem["argument_bytes"] + mem["temp_bytes"] <= fit:
+            continue
+        b = B
+        while b > 1 and mem["argument_bytes"] + mem["temp_bytes"] * b / B \
+                > fit:
+            b //= 2
+        cuts.setdefault((r["shape"], b), []).append(r["arch"])
+    return cuts
+
+
+def dryrun_cli(*args: str):
+    """``python -m repro_torch.launch.dryrun --all <args>`` as a
+    subprocess: (its results, its wall s, its exit code)."""
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "cells.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             *args, "--jobs", str(DRYRUN_JOBS), "--timeout",
+             str(DRYRUN_CELL_TIMEOUT_S), "--out", str(out)],
+            env=env, capture_output=True, text=True,
+            timeout=DRYRUN_ALL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        assert out.exists(), proc.stderr[-2000:]
+        return json.loads(out.read_text()), wall, proc.returncode
+
+
+def dryrun_phase():
+    """``dryrun [cells]``: ``python -m repro_torch.launch.dryrun --all
+    --mesh single`` as a subprocess (each cell a process of its own on a
+    fake world of 256), its roofline table at this card's peaks with
+    the FAILED rows; then the world-1 cells: every attention decoder's
+    ``decode_32k`` and ``prefill_32k`` counted by the dry-run on a 1 x 1
+    mesh cut to one repetition of its block pattern, a ``prefill_32k``
+    over ``WORLD1_FIT`` of the card counted again at a cut batch
+    (``_world1_batch_cuts``), and those whose estimate fits run on it
+    over an NCCL world of one in this process (``world1_cell``).
+    Returns the world-1 cells' launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compat import init_world, make_mesh
+    from repro_torch.launch import dryrun, roofline
+
+    peaks = roofline.card_peaks()
+    print(f"dryrun: peaks of {torch.cuda.get_device_name(0)}: HBM "
+          f"{peaks.hbm_bytes_per_s:.6g} B/s (read from the card), bf16 "
+          f"{peaks.bf16_flops:.4g} and f32 {peaks.f32_flops:.4g} FLOP/s, "
+          f"NVLink {peaks.nvlink_bytes_per_s:.4g} and inter-node "
+          f"{peaks.inter_node_bytes_per_s:.4g} B/s a direction")
+    results, wall, rc = dryrun_cli("--mesh", "single")
+    cells = dryrun.supported_cells()
+    assert [(r["arch"], r["shape"]) for r in results] == cells
+    ok = [r for r in results if r["ok"]]
+    for r in results:
+        fam = get_config(r["arch"]).family
+        if not r["ok"]:
+            assert re.match(r"\w+(Error|Exception|Expired): ", r["error"]), r
+        elif fam in ("ssm", "hybrid", "audio"):
+            print(f"dryrun: {r['arch']} {r['shape']} ran (it raised "
+                  "before)")
+    attention = [r for r in results
+                 if get_config(r["arch"]).family not in ("ssm", "hybrid",
+                                                         "audio")
+                 and (r["arch"], r["shape"]) != ("gemma3_27b", "long_500k")]
+    assert all(r["ok"] for r in attention), [
+        (r["arch"], r["shape"], r.get("error")) for r in attention
+        if not r["ok"]]
+    print(f"dryrun [cells]: {len(ok)} of {len(results)} cells ran on the "
+          f"16 x 16 mesh (fake world of 256, one process a cell, "
+          f"{DRYRUN_JOBS} at once) in {wall:.1f} s; exit code {rc}; the "
+          f"table at this card's peaks:")
+    print(roofline.report(results, peaks))
+
+    est, wall, _ = dryrun_cli("--mesh", "one", "--n-rep", "1", "--arch",
+                              ",".join(WORLD1_ARCHS), "--shape",
+                              "decode_32k,prefill_32k")
+    print(f"dryrun [world 1]: {len(est)} cells counted on a 1 x 1 mesh, "
+          f"cut to one repetition of the block pattern, in {wall:.1f} s")
+    cap = torch.cuda.get_device_properties(0).total_memory
+    cuts = _world1_batch_cuts(est, WORLD1_FIT * cap)
+    # one dry-run call a batch, all at once
+    with ThreadPoolExecutor(max_workers=max(len(cuts), 1)) as ex:
+        runs = list(ex.map(lambda c: dryrun_cli(
+            "--mesh", "one", "--n-rep", "1", "--arch", ",".join(c[1]),
+            "--shape", c[0][0], "--batch", str(c[0][1])), cuts.items()))
+    for ((shape, b), archs), (cut, wall, _) in zip(cuts.items(), runs):
+        print(f"dryrun [world 1]: {shape} of {', '.join(archs)} counted "
+              f"again with the batch cut to {b}, in {wall:.1f} s")
+        by_cell = {(c["arch"], c["shape"]): c for c in cut}
+        est = [by_cell.get((e["arch"], e["shape"]), e) for e in est]
+    init_world("cuda", init_method=f"tcp://127.0.0.1:{_free_port()}",
+               rank=0, world_size=1, timeout_s=DIST_TIMEOUT_S)
+    counts = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for r in est:
+            assert r["ok"], r
+            mem = r["memory"]
+            need = mem["argument_bytes"] + mem["temp_bytes"]
+            if need > WORLD1_FIT * cap:
+                cut_b = "" if r.get("batch") is None else \
+                    f" at batch {r['batch']}"
+                print(f"dryrun [world 1, {r['arch']} {r['shape']}]: "
+                      f"dry-run only: its estimate{cut_b} "
+                      f"{need / 1e9:.1f} GB exceeds {WORLD1_FIT} of the "
+                      f"card's {cap / 1e9:.1f} GB")
+                continue
+            counts.append(world1_cell(r, mesh, peaks))
+    finally:
+        dist.destroy_process_group()
+    ran = {k for c in counts for k, v in c.items() if v}
+    assert {"decode_attention", "flash_attention"} <= ran, \
+        f"world-1 cells ran only {sorted(ran)} on the card"
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3746,6 +4208,8 @@ def main() -> int:
     phase("kernels [whisper-base]", whisper_kernel_phase, dev, timer)
     phase("grad [attention]", grad_phase, dev, timer)
     launches, models, params, docs = phase("serve", serving_phase)
+    seed_launches = phase("serve [seed engine]", seed_engine_phase, models,
+                          params, docs)
     prefix_launches = phase("serve [prefix]", prefix_serving_phase, models,
                             params, docs)
     chaos_launches = phase("serve [chaos]", chaos_phase, models, params)
@@ -3793,19 +4257,25 @@ def main() -> int:
     rows.append(lse_row)
     whisper_launches, whisper_train_launches = phase(
         "models [whisper-base] + train [whisper-base]", whisper_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_launches = phase("dryrun [cells]", dryrun_phase)
     for r in rows:
-        # each path's run, counted from zero: serving, prefix, chaos,
-        # gemma3 oracle, the families' model checks and their two serving
-        # paths, the f32 recurrentgemma check, dbrx's model check and
-        # serving, build, llama3.2-1b and dbrx training, the data-parallel
-        # steps and the sp-decode LM of the distributed phase, whisper's
-        # model check and its training
+        # each path's run, counted from zero: serving, the seed and arena
+        # engines' timed runs, prefix, chaos, gemma3 oracle, the families'
+        # model checks and their two serving paths, the f32 recurrentgemma
+        # check, dbrx's model check and serving, build, llama3.2-1b and
+        # dbrx training, the data-parallel steps and the sp-decode LM of
+        # the distributed phase, whisper's model check and its training,
+        # the dry-run's world-1 cells
         r["launches"] = sum(c[r["name"]] for c in (
-            launches, prefix_launches, chaos_launches, gemma3_launches,
+            launches, *seed_launches, prefix_launches, chaos_launches,
+            gemma3_launches,
             *moe_model_launches, moe_launches, *rec_model_launches,
             rec_launches, rg32_launches, dbrx_model_launches, dbrx_launches,
             build_launches, train_launches, dbrx_train_launches,
-            *dist_launches, whisper_launches, whisper_train_launches))
+            *dist_launches, whisper_launches, whisper_train_launches,
+            *dryrun_launches))
         assert r["launches"] > 0, r["name"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -120,6 +120,16 @@ SHAPES = {
 }
 
 
+def shape_config(shape_name: str,
+                 batch_override: Optional[int] = None) -> ShapeConfig:
+    """The shape ``shape_name``, its global batch cut to
+    ``batch_override`` when given (a cell run on fewer cards)."""
+    sh = SHAPES[shape_name]
+    if batch_override is None:
+        return sh
+    return dataclasses.replace(sh, global_batch=batch_override)
+
+
 @dataclass(frozen=True)
 class ResolvedConfig:
     """ModelConfig after padding policy; consumed by the model zoo."""

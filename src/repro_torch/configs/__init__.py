@@ -2,12 +2,14 @@
 
 ``get_config(name)`` returns the full :class:`repro_torch.config.ModelConfig`;
 ``get_reduced(name)`` returns the tiny same-family config used by CPU smoke
-tests.  ``ARCHS`` lists the ported ids.
+tests; ``cut_layers`` cuts a config's depth as the dry-run's cells do.
+``ARCHS`` lists the ported ids.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..config import ModelConfig, reduced
 
@@ -49,6 +51,17 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str, **overrides) -> ModelConfig:
     return reduced(get_config(name), **overrides)
+
+
+def cut_layers(cfg: ModelConfig, n_rep: Optional[int]) -> ModelConfig:
+    """``cfg`` cut to ``n_rep`` repetitions of its block pattern plus its
+    tail (``num_layers % len(block_pattern)``); whisper, and ``n_rep``
+    None, as they are."""
+    if n_rep is None or cfg.family == "audio":
+        return cfg
+    p = len(cfg.block_pattern)
+    return dataclasses.replace(cfg, num_layers=p * n_rep
+                               + cfg.num_layers % p)
 
 
 def all_configs() -> Dict[str, ModelConfig]:

@@ -26,7 +26,10 @@ tensors only and raise otherwise; ``*_plain`` are the plain PyTorch
 versions of the same functions, which ``kernels.ops`` uses for CPU tensors
 and ``chip_smoke.py`` holds the kernels against on the card.
 ``LAUNCHES`` counts calls per entry point (each call is two kernel
-launches on the current stream, counted once).
+launches on the current stream, counted once).  ``work`` is the bytes
+and operations of one call, the card's lower bound: ``chip_smoke.py``'s
+bounds and the dry-run's counts (``decode_attention_meta``, for tensors
+on the ``meta`` device, which compute nothing) both come from it.
 
 Split-KV schedule: the key axis is cut into chunks of ``KV_CHUNK`` keys
 (a compile-time constant of the CUDA source, the same for every call).
@@ -46,11 +49,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, ref
+from .meta import compute_dtype
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
@@ -180,6 +185,45 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
                          "contiguous int32 CUDA tensor with batch rows")
     return _launch(q, k_arena, v_arena, rows, stride, tb, kv_len, sm_scale,
                    "paged_decode_attention")
+
+
+def work(B: int, Hq: int, Hkv: int, Dh: int, S: int, *,
+         kv_len: Optional[Sequence[int]] = None, q_itemsize: int = 2,
+         kv_itemsize: int = 2, rows: bool = False, lse: bool = False
+         ) -> Tuple[float, float]:
+    """(bytes, operations) one call must spend at the least: the K and V
+    rows of every visible key (``min(kv_len[b], S)`` a sequence; all ``S``
+    when ``kv_len`` is None, as on ``meta`` tensors) read once, q read
+    and the output written once (f32 ``[B, Hq, Dh + 2]`` for ``lse``),
+    ``kv_len`` and, for the paged entry (``rows``), the row ids read
+    once; 4 * Dh operations a query head and visible key (q.k and p.v,
+    a multiply and an add each)."""
+    if kv_len is None:
+        keys = float(B * S)
+    else:
+        keys = float(np.clip(np.asarray(kv_len, np.int64), 0, S).sum())
+    out = B * Hq * (Dh + 2) * 4 if lse else B * Hq * Dh * q_itemsize
+    nbytes = (keys * Hkv * Dh * kv_itemsize * 2 + B * Hq * Dh * q_itemsize
+              + out + B * 4 * (2 if rows else 1))
+    return nbytes, 4.0 * Hq * Dh * keys
+
+
+def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, *,
+                          lse: bool = False):
+    """The dense entry on ``meta`` tensors: (output stand-in, bytes,
+    operations, compute dtype), every key of the cache counted as
+    visible.  The split-KV workspace is allocated as the wrapper
+    allocates it, so the dry-run's memory count sees it."""
+    B, Hq, Dh = q.shape
+    _, S, Hkv, _ = k.shape
+    nbytes, flops = work(B, Hq, Hkv, Dh, S, q_itemsize=q.element_size(),
+                         kv_itemsize=k.element_size(), lse=lse)
+    shape, dtype = ((B, Hq, Dh + 2), torch.float32) if lse \
+        else ((B, Hq, Dh), q.dtype)
+    out = torch.empty(shape, dtype=dtype, device="meta")
+    torch.empty((B, Hq, -(-S // KV_CHUNK), Dh + 2), dtype=torch.float32,
+                device="meta")
+    return out, nbytes, flops, compute_dtype(q, k)
 
 
 def decode_attention_plain(q, k, v, kv_len, *, sm_scale=None):

@@ -18,6 +18,11 @@ per-row ``kv_len``, GQA.  They replace ``flash_attention_pallas`` and
 ``paged_flash_attention_pallas`` of the JAX package.  Both take CUDA
 tensors only and raise otherwise; ``*_plain`` are the plain PyTorch
 versions.  ``LAUNCHES`` counts kernel launches per entry point.
+``work`` is the bytes and operations of one call, the card's lower
+bound: ``chip_smoke.py``'s bounds and the dry-run's counts
+(``flash_attention_meta``, for tensors on the ``meta`` device, which
+compute nothing) both come from it.  ``tile`` is the tensor-core body's
+query and key tile at a head_dim (``TcTile`` in the CUDA source).
 
 bf16 q with a bf16 cache runs the tensor-core body (bf16 products, the
 softmax weights rounded to bf16 for P.V, f32 accumulation), which needs
@@ -36,11 +41,13 @@ port of a TPU kernel.  Its cost on the card stands beside SDPA's in
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, ref
+from .meta import compute_dtype, meta_call
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "paged_flash_attention": 0}
@@ -143,6 +150,64 @@ def paged_flash_attention(q: torch.Tensor, k_arena: torch.Tensor,
                    causal=causal, window=window, q_offset=q_offset,
                    kv_len=kv_len, sm_scale=sm_scale,
                    where="paged_flash_attention")
+
+
+def tile(head_dim: int) -> Tuple[int, int]:
+    """(query rows, keys) of a tensor-core block at ``head_dim``: 16 rows
+    a warp, 8 warps from Dh 128 and 4 below; 64-key tiles, 32 at Dh
+    256 (``TcTile`` in ``csrc/flash_attention.cu``)."""
+    return (128 if head_dim >= 128 else 64), (32 if head_dim >= 256 else 64)
+
+
+def work(B: int, Sq: int, Hq: int, Hkv: int, Dh: int, Skv: int, *,
+         causal: bool = True, window: Optional[int] = None,
+         q_offset: int = 0, kv_len: Optional[Sequence[int]] = None,
+         q_itemsize: int = 2, kv_itemsize: int = 2, rows: bool = False
+         ) -> Tuple[float, float]:
+    """(bytes, operations) one call must spend at the least.  Query ``i``
+    sits at ``q_offset + i`` and sees keys below ``n_b = min(kv_len[b],
+    Skv)`` (all ``Skv`` when ``kv_len`` is None, as on ``meta`` tensors),
+    at or before itself when ``causal``, within ``window`` of it.  Bytes:
+    K and V of each key some query of a sequence sees, read once; q read
+    and the output written once; ``kv_len`` and, for the paged entry
+    (``rows``), the row ids read once.  Operations: 4 * Dh a query head
+    and visible (query, key) pair (q.k and p.v, a multiply and an add
+    each)."""
+    n = np.full(B, Skv, np.int64) if kv_len is None \
+        else np.clip(np.asarray(kv_len, np.int64), 0, Skv)
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi_q = qpos + 1 if causal else np.full(Sq, Skv, np.int64)
+    lo_q = np.maximum(qpos - window + 1, 0) if window \
+        else np.zeros(Sq, np.int64)
+    top = q_offset + Sq if causal else Skv
+    bottom = max(q_offset - window + 1, 0) if window else 0
+    pairs = keys = 0.0
+    for nb in np.unique(n):
+        count = int((n == nb).sum())
+        pairs += count * float(np.clip(np.minimum(hi_q, nb) - lo_q, 0,
+                                       None).sum())
+        keys += count * float(max(min(nb, top) - bottom, 0))
+    nbytes = (keys * Hkv * Dh * kv_itemsize * 2 + 2 * B * Sq * Hq * Dh
+              * q_itemsize + B * 4 * ((kv_len is not None) + rows))
+    return nbytes, 4.0 * Hq * Dh * pairs
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         q_offset: int = 0, kv_len=None):
+    """The dense entry on ``meta`` tensors: (output stand-in, bytes,
+    operations, compute dtype), every key below ``Skv`` counted as valid
+    (a ``meta`` ``kv_len`` holds no values; its bytes are counted)."""
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    nbytes, flops = work(B, Sq, Hq, Hkv, Dh, Skv, causal=causal,
+                         window=window, q_offset=q_offset,
+                         q_itemsize=q.element_size(),
+                         kv_itemsize=k.element_size())
+    if kv_len is not None:
+        nbytes += B * 4
+    return (torch.empty(q.shape, dtype=q.dtype, device="meta"), nbytes,
+            flops, compute_dtype(q, k))
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -265,6 +330,10 @@ class FlashAttentionFn(torch.autograd.Function):
                   kv_len=kv_len, sm_scale=sm_scale)
         if q.is_cuda:
             out = flash_attention(q, k, v, **kw)
+        elif q.is_meta:
+            out = meta_call("flash_attention", *flash_attention_meta(
+                q, k, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len))
         else:
             out = flash_attention_plain(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, kv_len)

@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain PyTorch version of a kernel; a CUDA tensor
 goes to the hand-written CUDA kernel (``decode_attention`` /
 ``flash_attention`` / ``relevance_score``), whose wrapper raises on
-anything it does not take.
+anything it does not take.  A ``meta`` tensor (the dry-run's stand-ins)
+goes to the dense entries' meta functions, which return the kernel's
+output shape and report its work (``kernels.meta``).
 There is no switch that sends a CUDA tensor to the plain path and no
 fallback: every CUDA call runs a kernel, ragged shapes included (the
 kernels mask their own edges).
@@ -23,6 +25,7 @@ from . import flash_attention as _fla
 from . import ref
 from . import relevance_score as _rel
 from . import sanitize
+from .meta import meta_call
 
 
 def _check_slots(slots, n_rows: int, where: str) -> None:
@@ -110,6 +113,10 @@ def attention(
                                            q_offset, sm_scale)
     if q.is_cuda:
         return _fla.flash_attention(q, k, v, kv_len=_i32(kv_len), **kw)
+    if q.is_meta:
+        return meta_call("flash_attention", *_fla.flash_attention_meta(
+            q, k, causal=causal, window=window, q_offset=q_offset,
+            kv_len=kv_len))
     return _fla.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)
 
 
@@ -125,6 +132,9 @@ def decode_attention(
     if q.is_cuda:
         return _dec.decode_attention(q.contiguous(), k, v, _i32(kv_len),
                                      sm_scale=sm_scale)
+    if q.is_meta:
+        return meta_call("decode_attention",
+                         *_dec.decode_attention_meta(q, k))
     return _dec.decode_attention_plain(q, k, v, kv_len, sm_scale=sm_scale)
 
 
@@ -141,6 +151,9 @@ def decode_attention_lse(
     if q.is_cuda:
         return _dec.decode_attention_lse(q.contiguous(), k, v, _i32(kv_len),
                                          sm_scale=sm_scale)
+    if q.is_meta:
+        return meta_call("decode_attention_lse",
+                         *_dec.decode_attention_meta(q, k, lse=True))
     return _dec.decode_attention_lse_plain(q, k, v, kv_len,
                                            sm_scale=sm_scale)
 

@@ -22,12 +22,15 @@ The wrapper takes CUDA tensors only and raises otherwise: ``x`` f32
 element on the same device (read on the device, so a launch never waits
 on the host).  ``relevance_score_plain`` is the plain PyTorch version,
 used by ``kernels.ops`` for CPU tensors and by ``chip_smoke.py`` as the
-kernel's yardstick of correctness.  ``LAUNCHES`` counts kernel launches.
+kernel's yardstick of correctness.  ``LAUNCHES`` counts kernel launches;
+``work`` is one call's bytes and operations, the bound of its row in
+``chip_smoke.py``'s table.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, ref
@@ -84,6 +87,17 @@ def relevance_score(x: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
     _build.check(err, "relevance_score")
     LAUNCHES["relevance_score"] += 1
     return out
+
+
+def work(C: int, T: int, D: int, lengths: Sequence[int]
+         ) -> Tuple[float, float]:
+    """(bytes, operations) one call must spend at the least: the
+    ``min(len_c, T)`` valid rows of each chunk and ``w`` read once, 12
+    bytes a chunk (its int32 length in, its f32 score out, and 4 more, as
+    the bound has counted since the kernel was ported), two f32
+    operations a valid element (multiply and add)."""
+    n = float(np.clip(np.asarray(lengths, np.int64), 0, T).sum())
+    return n * D * 4 + 12 * C + 4 * D, 2.0 * n * D
 
 
 def relevance_score_plain(x, lengths, w, b) -> torch.Tensor:

@@ -8,10 +8,12 @@ The JAX package's ``launch/specs.py`` for the port, over the shape table
     long_500k     serve_step ...                         B=1    KV=524288
 
 ``build_case`` assembles (fn, argument stand-ins, in/out specs) for one
-cell on one mesh.  The steps are the port's own, over a model built with
-``sharded=True`` (``models.model``): the sharded train step of
-``train.train_loop`` with ZeRO-1 moments (``train.optimizer``), the
-model's ``prefill`` and ``decode_step``.  Each rank runs the same
+cell on one mesh; ``batch_override`` cuts the shape's global batch (a
+cell run on one card, where the full batch does not fit).  The steps
+are the port's own, over a model built with ``sharded=True``
+(``models.model``): the sharded train step of ``train.train_loop`` with
+ZeRO-1 moments (``train.optimizer``), the model's ``prefill`` and
+``decode_step``.  Each rank runs the same
 ``fn`` on its own shards, so the stand-ins are tensors on the ``meta``
 device at ONE RANK's local shapes (nothing is allocated; the parameter
 shapes come from ``init`` under ``FakeTensorMode``), and
@@ -24,14 +26,13 @@ production meshes) for the specs and shapes; running ``fn`` needs a
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..config import SHAPES, ResolvedConfig, resolve
-from ..configs import get_config
+from ..config import ResolvedConfig, ShapeConfig, resolve, shape_config
+from ..configs import cut_layers, get_config
 from ..distributed.compat import dp_axes, mesh_shape
 from ..distributed.sharding import Spec, batch_pspec, shard_shape, \
     tree_pspecs
@@ -59,11 +60,7 @@ def make_model(arch: str, mesh, shape_name: str,
     axis, built ``sharded`` over the mesh, sequence-parallel decode for
     ``long_500k``; ``n_rep_override`` cuts ``num_layers`` to that many
     repetitions of the block pattern (plus its tail)."""
-    cfg = get_config(arch)
-    if n_rep_override is not None and cfg.family != "audio":
-        p = len(cfg.block_pattern)
-        cfg = dataclasses.replace(
-            cfg, num_layers=p * n_rep_override + cfg.num_layers % p)
+    cfg = cut_layers(get_config(arch), n_rep_override)
     rcfg = resolve(cfg, tp=mesh_shape(mesh)["model"] if mesh else 1)
     kw = dict(device=device, mesh=mesh, sharded=mesh is not None)
     if cfg.family == "audio":
@@ -91,15 +88,15 @@ def param_structs(model, mesh) -> Any:
     """One rank's parameter shards as meta tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
-        full = model.init(0)
+        # a CPU twin draws the shapes: a generator cannot live on ``meta``
+        full = type(model)(model.rcfg, device="cpu").init(0)
     return _local_structs(full, tree_pspecs(model.param_specs(), mesh), mesh)
 
 
-def _batch_structs(rcfg: ResolvedConfig, shape_name: str
+def _batch_structs(rcfg: ResolvedConfig, sh: ShapeConfig
                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """The GLOBAL batch: ``(shape, dtype)`` per input."""
     b = rcfg.base
-    sh = SHAPES[shape_name]
     B, S = sh.global_batch, sh.seq_len
     if b.frontend_stub == "vision_patches":
         return {"tokens": ((B, S - b.frontend_len), I32),
@@ -112,24 +109,25 @@ def _batch_structs(rcfg: ResolvedConfig, shape_name: str
     return {"tokens": ((B, S), I32), "labels": ((B, S), I32)}
 
 
-def _batch_pspecs(rcfg: ResolvedConfig, shape_name: str, mesh
+def _batch_pspecs(rcfg: ResolvedConfig, sh: ShapeConfig, mesh
                   ) -> Dict[str, Spec]:
-    sh = SHAPES[shape_name]
     dp = batch_pspec(mesh)[0] if sh.global_batch % dp_size(mesh) == 0 \
         else None
     return {k: (dp,) + (None,) * (len(shape) - 1)
-            for k, (shape, _) in _batch_structs(rcfg, shape_name).items()}
+            for k, (shape, _) in _batch_structs(rcfg, sh).items()}
 
 
 @dataclass
 class DryRunCase:
     """Everything one (arch x shape x mesh) cell runs: ``fn(*args)`` on
-    every rank, with ``args`` one rank's meta stand-ins."""
+    every rank, with ``args`` one rank's meta stand-ins, and the model
+    ``fn`` runs."""
     name: str
     fn: Callable
     args: Tuple[Any, ...]
     in_shardings: Any
     out_shardings: Any
+    model: Any
     donate_argnums: Tuple[int, ...] = ()
 
 
@@ -140,13 +138,14 @@ def _unsharded(model):
 
 def build_case(arch: str, shape_name: str, mesh,
                n_rep_override: Optional[int] = None,
-               device="cuda") -> DryRunCase:
+               device="cuda",
+               batch_override: Optional[int] = None) -> DryRunCase:
     model, rcfg = make_model(arch, mesh, shape_name, n_rep_override, device)
-    sh = SHAPES[shape_name]
+    sh = shape_config(shape_name, batch_override)
     name = f"{arch}|{shape_name}"
     pspecs = tree_pspecs(model.param_specs(), mesh)
     params = param_structs(model, mesh)
-    batch_specs = _batch_pspecs(rcfg, shape_name, mesh)
+    batch_specs = _batch_pspecs(rcfg, sh, mesh)
     batch_sharded = sh.global_batch % dp_size(mesh) == 0
     dp = batch_pspec(mesh)[0] if batch_sharded else None
 
@@ -158,7 +157,7 @@ def build_case(arch: str, shape_name: str, mesh,
         zspecs = tree_map(lambda _: next(zit), params)
         opt = OptState(_meta((), I32), mu,
                        tree_map(lambda t: _meta(t.shape, t.dtype), mu))
-        batch = _local_structs(_batch_structs(rcfg, shape_name),
+        batch = _local_structs(_batch_structs(rcfg, sh),
                                batch_specs, mesh)
         # the int8 pod hop stays off, as in the reference's sharded step
         step = make_train_step(model, mesh,
@@ -167,10 +166,11 @@ def build_case(arch: str, shape_name: str, mesh,
         metrics = {"loss": (), "grad_norm": (), "lr": ()}
         return DryRunCase(name, step, (params, opt, batch),
                           (pspecs, opt_specs, batch_specs),
-                          (pspecs, opt_specs, metrics), donate_argnums=(0, 1))
+                          (pspecs, opt_specs, metrics), model,
+                          donate_argnums=(0, 1))
 
     if sh.kind == "prefill":
-        structs = _batch_structs(rcfg, shape_name)
+        structs = _batch_structs(rcfg, sh)
         structs.pop("labels")
         bspecs = {k: v for k, v in batch_specs.items() if k in structs}
         st_specs = tree_pspecs(model.state_specs(
@@ -181,7 +181,7 @@ def build_case(arch: str, shape_name: str, mesh,
 
         return DryRunCase(name, prefill_fn,
                           (params, _local_structs(structs, bspecs, mesh)),
-                          (pspecs, bspecs), ((dp, "model"), st_specs))
+                          (pspecs, bspecs), ((dp, "model"), st_specs), model)
 
     # decode kinds (decode_32k / long_500k): one-token serve_step
     B = sh.global_batch
@@ -197,4 +197,4 @@ def build_case(arch: str, shape_name: str, mesh,
 
     return DryRunCase(name, decode_fn, (params, tok, states, tok),
                       (pspecs, (dp,), st_specs, (dp,)),
-                      ((dp, "model"), st_specs), donate_argnums=(2,))
+                      ((dp, "model"), st_specs), model, donate_argnums=(2,))

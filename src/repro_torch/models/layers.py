@@ -115,9 +115,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     half = dh // 2
     assert sum(sections) == half, (sections, dh)
     inv = rope_freqs(dh, theta, x.device)                # [half]
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))         # [half]
+    sec_id = torch.tensor([c for c, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)   # [half]
     pos = positions3.float()[..., sec_id]                # [B, S, half]
     ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]
@@ -250,7 +249,8 @@ def lm_head_apply(params, x: torch.Tensor,
     On the card a bf16 table stays in its storage dtype (cuBLAS bf16
     product with an f32 result) instead of materializing an f32 copy of
     the whole vocab table every step, in training too (``_HeadMatmul``);
-    on the CPU the product runs in f32.
+    on the CPU the product runs in f32.  ``meta`` tensors (the dry-run)
+    take the card's route, which is what the dry-run counts.
     """
     table = params["table"]
     if tp_mesh is not None:
@@ -259,7 +259,7 @@ def lm_head_apply(params, x: torch.Tensor,
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32 and table.dtype == torch.float32:
         logits = x2 @ table.t()
-    elif x2.is_cuda:
+    elif x2.is_cuda or x2.is_meta:
         logits = _HeadMatmul.apply(x2, table)
     else:
         logits = x2.float() @ table.float().t()

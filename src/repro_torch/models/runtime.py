@@ -5,6 +5,8 @@ device their tensors live on (``kernels.ops``).  What remains of the JAX
 package's ``Runtime`` knobs is the device itself.  Entry points run on
 the CUDA device unless the caller asks for the CPU explicitly; asking for
 nothing on a machine without a GPU is an error, never a silent CPU run.
+The ``meta`` device (shapes without data) is accepted for the dry-run
+(``launch.dryrun``), which counts what a step does without running it.
 """
 from __future__ import annotations
 
@@ -29,6 +31,6 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "plain PyTorch versions of the kernels")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -20,18 +20,23 @@ data through the process groups of the mesh's axes.
     Per-tensor int8 quantization with error feedback for the cross-pod
     gradient all-reduce.
 
-``copy_to_model`` / ``reduce_from_model`` / ``mean_over`` /
-``all_to_all`` (differentiable) and ``group_sum`` / ``reduce_scatter`` /
-``all_gather`` (on gradients and optimizer slices)
+``copy_to_model`` / ``reduce_from_model`` / ``gather_from_model`` /
+``gather_to_model`` / ``mean_over`` / ``all_to_all`` (differentiable) and
+``group_sum`` / ``reduce_scatter`` / ``all_gather`` (on gradients and
+optimizer slices)
     What GSPMD inserts for the reference's tensor-parallel specs, made
     explicit (Megatron's pair): ``copy_to_model`` is the identity forward
     and sums the gradient over the axis, ``reduce_from_model`` sums
-    forward and passes the gradient through, ``mean_over`` (the
-    reference's ``pmean``) averages both ways, and ``all_to_all``'s
-    backward is the exchange back.  Every sum is taken in rank order (an
-    all-gather, then adds from rank 0 up), so every rank holds the same
-    bits and two runs are bitwise equal; over a group of one rank each is
-    the identity.
+    forward and passes the gradient through, ``gather_from_model``
+    concatenates the ranks' shards into a value every rank then uses
+    alike (the gradient: this rank's slice), ``gather_to_model``
+    concatenates them into a value each rank uses for its own part (the
+    gradient: reduce-scattered, the adjoint of the gather),
+    ``mean_over`` (the reference's ``pmean``) averages both ways, and
+    ``all_to_all``'s backward is the exchange back.  Every sum is taken
+    in rank order (an all-gather, then adds from rank 0 up), so every
+    rank holds the same bits and two runs are bitwise equal; over a
+    group of one rank each is the identity.
 """
 from __future__ import annotations
 
@@ -74,7 +79,8 @@ def merge_lse(parts: List[torch.Tensor], dtype) -> torch.Tensor:
 
 def sp_decode_attention(q: torch.Tensor, k_local: torch.Tensor,
                         v_local: torch.Tensor, kv_len: torch.Tensor, mesh,
-                        sm_scale: float, axis: str = "data") -> torch.Tensor:
+                        sm_scale: float, axis: str = "data",
+                        heads_local: bool = False) -> torch.Tensor:
     """Flash-decoding across the mesh.
 
     q [B, Hq, Dh] is replicated over ``axis``; k_local/v_local [B,
@@ -82,12 +88,14 @@ def sp_decode_attention(q: torch.Tensor, k_local: torch.Tensor,
     i holds positions ``[i * S_local, (i + 1) * S_local)``); kv_len [B]
     is the global valid length.  When the KV heads divide over a
     ``model`` axis larger than 1 (the reference's rule), each rank also
-    takes only its heads and the heads are gathered at the end.  Returns
-    [B, Hq, Dh] in q's dtype on every rank."""
+    takes only its heads and the heads are gathered at the end.  With
+    ``heads_local`` q and the cache hold this rank's heads already (a
+    tensor-parallel attention layer): they are neither cut nor gathered.
+    Returns [B, Hq, Dh] in q's dtype on every rank of ``axis``."""
     s_local = k_local.shape[1]
     idx = axis_index(mesh, axis)
     tp = axis_size(mesh, "model") if "model" in axis_names(mesh) else 1
-    heads = tp > 1 and k_local.shape[2] % tp == 0
+    heads = not heads_local and tp > 1 and k_local.shape[2] % tp == 0
     if heads:
         j = axis_index(mesh, "model")
         hk, hq = k_local.shape[2] // tp, q.shape[1] // tp
@@ -318,6 +326,29 @@ class _MeanOver(torch.autograd.Function):
         return group_sum(g, ctx.group) / dist.get_world_size(ctx.group), None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return g.chunk(n, ctx.dim)[dist.get_rank(ctx.group)], None, None
+
+
+class _GatherToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()          # the output must not inherit x's strides
     out = torch.empty_like(x)
@@ -348,6 +379,25 @@ def reduce_from_model(x: torch.Tensor, mesh, axis: str = "model"
     """The sum of the ranks' partial ``x`` over ``axis``; the gradient
     passes through (a row-parallel product's output)."""
     return _ReduceFromModel.apply(x, axis_group(mesh, axis))
+
+
+def gather_from_model(x: torch.Tensor, mesh, dim: int,
+                      axis: str = "model") -> torch.Tensor:
+    """The ranks' shards of ``axis`` concatenated along ``dim`` in rank
+    order, a value every rank then uses alike (a column-parallel output
+    that joins the replicated residual stream); the gradient, whole on
+    every rank, gives back this rank's slice."""
+    return _GatherFromModel.apply(x, axis_group(mesh, axis), dim % x.dim())
+
+
+def gather_to_model(x: torch.Tensor, mesh, dim: int,
+                    axis: str = "model") -> torch.Tensor:
+    """The ranks' shards of ``axis`` concatenated along ``dim`` in rank
+    order, a value each rank uses for its own part (a recurrent mixer's
+    whole heads, read by the rank's columns): the gradient, partial on
+    each rank, is summed over ``axis`` and cut back to this rank's slice
+    (``reduce_scatter``, in rank order)."""
+    return _GatherToModel.apply(x, axis_group(mesh, axis), dim % x.dim())
 
 
 def mean_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -28,6 +28,12 @@ dispatch mode (``StepCounter``):
   ``temp_bytes``, the peak of the bytes allocated during the step and
   still alive (results included).
 
+A loop of identical steps (sLSTM's loop over tokens) runs one step on
+``meta``, counted as many times as the loop is long
+(``kernels.meta.steps``): the same FLOPs, bytes and collectives as
+every step traced one by one, at the cost of one (memory is the one
+step's).
+
 The step is eager, so a full-depth count is exact; ``--n-rep R`` counts
 the model cut to R repetitions of its block pattern (a speed option:
 each repetition adds the same counts, so R = 1 and R = 2 extrapolate to
@@ -167,22 +173,24 @@ class StepCounter(TorchDispatchMode):
     def kernel(self, name: str, nbytes: float, flops: float,
                dtype: torch.dtype) -> None:
         """``kernels.meta`` observer: one hand-written kernel's call."""
+        n = kmeta.repeat()
         k = self.kernels.setdefault(name, {"calls": 0, "bytes": 0.0,
                                            "flops": 0.0})
-        k["calls"] += 1
-        k["bytes"] += nbytes
-        k["flops"] += flops
-        self.bytes += nbytes
-        self.flops += flops
+        k["calls"] += n
+        k["bytes"] += n * nbytes
+        k["flops"] += n * flops
+        self.bytes += n * nbytes
+        self.flops += n * flops
         if dtype == torch.float32:
-            self.flops_f32 += flops
+            self.flops_f32 += n * flops
 
     def _collective(self, func, args, kwargs) -> None:
         kind = collective_kind(func.__name__.split(".")[0])
         if kind is None:
             return
         seen = {id(t): _nbytes(t) for t in _tensors((args, kwargs))}
-        n = sum(seen.values()) * (2 if kind in _IN_PLACE_KINDS else 1)
+        n = sum(seen.values()) * (2 if kind in _IN_PLACE_KINDS else 1) \
+            * kmeta.repeat()
         axis = "other"
         for a in tree_flatten((args, kwargs))[0]:
             if isinstance(a, torch.ScriptObject) and \
@@ -196,7 +204,8 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.ops += 1
+        rep = kmeta.repeat()
+        self.ops += rep
         if func.namespace == "c10d":
             self._collective(func, args, kwargs)
             return out
@@ -206,14 +215,15 @@ class StepCounter(TorchDispatchMode):
                 self._track(t)
         packet = func.overloadpacket
         if packet in flop_registry:
-            f = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            f = rep * float(flop_registry[packet](*args, **kwargs,
+                                                  out_val=out))
             self.flops += f
             ins = _tensors((args, kwargs))
             if ins and ins[0].dtype == torch.float32:
                 self.flops_f32 += f
         if func.is_view or packet.__name__ in _ALLOCATIONS:
             return out
-        self.bytes += self._op_bytes(func, args, kwargs, outs)
+        self.bytes += rep * self._op_bytes(func, args, kwargs, outs)
         return out
 
     @staticmethod

@@ -18,7 +18,15 @@ ZeRO-1 moments (``train.optimizer``), the model's ``prefill`` and
 device at ONE RANK's local shapes (nothing is allocated; the parameter
 shapes come from ``init`` under ``FakeTensorMode``), and
 ``in_shardings``/``out_shardings`` are the trees of mesh specs
-(``distributed.sharding``) the shards are cut by.  ``donate_argnums``
+(``distributed.sharding``) the shards are cut by.  Every arch's layers
+are tensor-parallel over the ``model`` axis: attention, MLP and MoE,
+the recurrent mixers (``models.ssm``) and whisper's encoder-decoder
+(``models.whisper``); ``long_500k`` builds ``LM(sp_decode=True)`` for
+every decoder (gemma3-27b's global layers cut their caches over
+``data`` and their KV heads over ``model``; sliding-window rings and
+recurrent states stay whole along the sequence).  Whisper's batch adds
+``frame_emb`` (the stub frontend's frames), cut over the batch axes
+like the tokens.  ``donate_argnums``
 is kept as metadata: the port's steps update parameters, moments and
 caches in place anyway.  A mesh may be a ``compat.MeshShape`` (the
 production meshes) for the specs and shapes; running ``fn`` needs a
@@ -58,8 +66,10 @@ def make_model(arch: str, mesh, shape_name: str,
                n_rep_override: Optional[int] = None, device="cuda"):
     """(model, rcfg) for one cell: resolved at ``tp`` = the mesh's model
     axis, built ``sharded`` over the mesh, sequence-parallel decode for
-    ``long_500k``; ``n_rep_override`` cuts ``num_layers`` to that many
-    repetitions of the block pattern (plus its tail)."""
+    ``long_500k`` (every decoder: gemma3-27b, xlstm-350m and
+    recurrentgemma-2b have the cell); ``n_rep_override`` cuts
+    ``num_layers`` to that many repetitions of the block pattern (plus
+    its tail; whisper keeps its 6 + 6 layers)."""
     cfg = cut_layers(get_config(arch), n_rep_override)
     rcfg = resolve(cfg, tp=mesh_shape(mesh)["model"] if mesh else 1)
     kw = dict(device=device, mesh=mesh, sharded=mesh is not None)

@@ -80,14 +80,28 @@ Tensor parallelism (``tp_mesh``, a mesh whose ``model`` axis is larger
 than 1; the parameters this rank's shards of ``spec_attention``): ``wq``
 and ``wo`` hold this rank's query heads, ``wk``/``wv`` its KV heads when
 ``kv_sharded`` (the KV heads divide over ``tp``), else all of them, of
-which the rank takes the KV heads of its own query heads.  The input
+which the rank reads the KV heads of its own query heads.  The input
 enters through ``copy_to_model``, so do the replicated weights that act
 on the rank's heads alone (``wk``/``wv`` when not sharded, the QK-norm
 scales), and ``wo``'s partial output leaves through
 ``reduce_from_model``.  The local heads run the same kernels at local
-head counts; dense caches hold the local KV heads.  Paged and
-sequence-parallel caches, and caches of replicated KV heads, take no
-model axis (they raise).
+head counts.  What each cache holds under it:
+
+- a dense cache or ring of sharded KV heads holds the rank's KV heads;
+- one of replicated KV heads (``spec_kv_cache(kv_sharded=False)``:
+  recurrentgemma's single MQA head at any ``tp``) holds every KV head on
+  every rank: a serving step projects them all and writes the same
+  cache on every rank, and attends over the KV heads of the rank's query
+  heads (in training only those are projected);
+- a sequence-parallel cache holds the rank's KV heads of its ``data``
+  slice: the decode kernel's log-sum-exp mode runs over the rank's heads
+  and the combine runs over ``data`` (``sp_decode_attention(...,
+  heads_local=True)``);
+- cross-attention (``kv_ctx``) reads the rank's heads of the K/V the
+  caller projected with the rank's ``wk``/``wv`` shards.
+
+Paged caches (``slots``) take no model axis: they raise (ROADMAP Queue
+1).
 """
 from __future__ import annotations
 
@@ -231,22 +245,23 @@ def _kv_heads_of_rank(h_loc: int, kv: int, mesh) -> slice:
 
 
 def _tp_weights(p: Dict[str, Any], mesh, kv_sharded: bool, train: bool
-                ) -> Dict[str, Any]:
+                ) -> Tuple[Dict[str, Any], Optional[slice]]:
     """This rank's view of the attention weights under tensor
-    parallelism (module docstring)."""
-    q = dict(p)
+    parallelism, and the KV heads its query heads read out of a cache
+    that keeps every KV head (None where the rank's K/V are its own
+    heads); module docstring."""
+    q, kv_sl = dict(p), None
     if not kv_sharded:
-        if not train:
-            raise NotImplementedError(
-                "serving a model whose KV heads are replicated over the "
-                "model axis (padded_kv_heads < tp) is not ported; it trains")
         sl = _kv_heads_of_rank(p["wq"].shape[1], p["wk"].shape[1], mesh)
-        q["wk"] = copy_to_model(p["wk"], mesh)[:, sl]
-        q["wv"] = copy_to_model(p["wv"], mesh)[:, sl]
+        if train:
+            q["wk"] = copy_to_model(p["wk"], mesh)[:, sl]
+            q["wv"] = copy_to_model(p["wv"], mesh)[:, sl]
+        else:
+            kv_sl = sl
     for n in ("q_norm", "k_norm"):
         if n in p:
             q[n] = {"scale": copy_to_model(p[n]["scale"], mesh)}
-    return q
+    return q, kv_sl
 
 
 def attention_apply(
@@ -282,14 +297,20 @@ def attention_apply(
     sp = sp_mesh is not None and not local
     if sp and slots is not None:
         raise ValueError("paged serving takes no sequence-parallel cache")
+    kv_sl = None
     if tp_mesh is not None:
-        if sp or slots is not None or kv_ctx is not None:
+        if slots is not None:
             raise NotImplementedError(
-                "tensor-parallel attention takes dense self-attention "
-                "caches only")
-        p = _tp_weights(p, tp_mesh, kv_sharded,
-                        train=(mode == "full" and not want_cache))
+                "paged caches under tensor parallelism are not ported "
+                "(ROADMAP.md, Queue 1)")
+        p, kv_sl = _tp_weights(p, tp_mesh, kv_sharded,
+                               train=(mode == "full" and not want_cache))
         x = copy_to_model(x, tp_mesh)
+
+    def rd(t: torch.Tensor) -> torch.Tensor:
+        """The KV heads this rank's query heads read."""
+        return t if kv_sl is None else t[:, :, kv_sl]
+
     B, S, D = x.shape
     dh = p["wq"].shape[-1]
     sm_scale = 1.0 / math.sqrt(dh)
@@ -300,7 +321,10 @@ def attention_apply(
         k, v = kv_ctx
         out = ops.attention(_proj(x, p["wq"]), k, v, causal=False,
                             sm_scale=sm_scale)
-        return out.reshape(B, S, h * dv) @ p["wo"].reshape(h * dv, d), None
+        out = out.reshape(B, S, h * dv) @ p["wo"].reshape(h * dv, d)
+        if tp_mesh is not None:
+            out = reduce_from_model(out, tp_mesh)
+        return out, None
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if mrope_sections is not None and positions3 is None:
@@ -320,7 +344,7 @@ def attention_apply(
 
     new_cache = None
     if mode == "full":
-        out = ops.attention(q, k, v, causal=causal, window=window,
+        out = ops.attention(q, rd(k), rd(v), causal=causal, window=window,
                             sm_scale=sm_scale)
         if want_cache:
             if sp:
@@ -354,8 +378,8 @@ def attention_apply(
                     "a sequence-parallel cache takes a prefill at q_offset 0 "
                     "and decode steps")
             kk, vv = k.to(ck.dtype), v.to(cv.dtype)
-            out = ops.attention(q, kk, vv, causal=causal, kv_len=kv_len,
-                                sm_scale=sm_scale)
+            out = ops.attention(q, rd(kk), rd(vv), causal=causal,
+                                kv_len=kv_len, sm_scale=sm_scale)
             lo = _sp_rank(sp_mesh) * ck.shape[1]
             n = max(min(S - lo, ck.shape[1]), 0)
             ck[:, :n] = kk[:, lo:lo + n]
@@ -363,13 +387,14 @@ def attention_apply(
         elif local and q_offset == 0:
             # fresh prefill into a preallocated ring: the windowed kernel
             # over the chunk itself, then the ring write
-            out = ops.attention(q, k, v, causal=causal, window=window,
-                                kv_len=kv_len, sm_scale=sm_scale)
+            out = ops.attention(q, rd(k), rd(v), causal=causal,
+                                window=window, kv_len=kv_len,
+                                sm_scale=sm_scale)
             _ring_write(cache, k, v, positions, ck.shape[1])
         elif local:
-            out = _ring_extend(q, k, v, ck, cv, positions, window=window,
-                               q_offset=q_offset, kv_len=kv_len,
-                               sm_scale=sm_scale).to(x.dtype)
+            out = _ring_extend(q, rd(k), rd(v), rd(ck), rd(cv), positions,
+                               window=window, q_offset=q_offset,
+                               kv_len=kv_len, sm_scale=sm_scale).to(x.dtype)
             _ring_write(cache, k, v, positions, window)
         else:
             # dense extend: write new kv at [q_offset, q_offset + S)
@@ -377,8 +402,9 @@ def attention_apply(
             cv[:, q_offset:q_offset + S] = v.to(cv.dtype)
             kv_valid = q_offset + S
             out = ops.attention(
-                q, ck[:, :kv_valid], cv[:, :kv_valid], causal=causal,
-                q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
+                q, rd(ck[:, :kv_valid]), rd(cv[:, :kv_valid]),
+                causal=causal, q_offset=q_offset, kv_len=kv_len,
+                sm_scale=sm_scale)
         if want_cache:
             new_cache = cache
     elif mode == "decode":
@@ -405,8 +431,9 @@ def attention_apply(
             bidx = torch.arange(B, device=x.device)
             ck[bidx, at] = torch.where(own, k[:, 0].to(ck.dtype), ck[bidx, at])
             cv[bidx, at] = torch.where(own, v[:, 0].to(cv.dtype), cv[bidx, at])
-            out1 = sp_decode_attention(q[:, 0], ck, cv, cache_len + 1,
-                                       sp_mesh, sm_scale)
+            out1 = sp_decode_attention(q[:, 0], rd(ck), rd(cv),
+                                       cache_len + 1, sp_mesh, sm_scale,
+                                       heads_local=tp_mesh is not None)
         else:
             bidx = torch.arange(B, device=x.device)
             if local:
@@ -419,7 +446,7 @@ def attention_apply(
                 at, kv_valid = cache_len, cache_len + 1
             ck[bidx, at] = k[:, 0].to(ck.dtype)
             cv[bidx, at] = v[:, 0].to(cv.dtype)
-            out1 = ops.decode_attention(q[:, 0], ck, cv, kv_valid,
+            out1 = ops.decode_attention(q[:, 0], rd(ck), rd(cv), kv_valid,
                                         sm_scale=sm_scale)
         out = out1[:, None]
         new_cache = cache

@@ -54,13 +54,6 @@ def check_supported(rcfg: ResolvedConfig) -> None:
                          "models.whisper.WhisperModel")
 
 
-def tp_unported(name: str) -> str:
-    return (f"{name}: tensor parallelism over a model axis larger than 1 "
-            "is ported for attention, MLP and MoE layers only; the "
-            "recurrent mixers and whisper's layers wait for it (ROADMAP "
-            "Queue 1)")
-
-
 def _has_ffn(rcfg: ResolvedConfig) -> bool:
     return rcfg.base.moe is not None or rcfg.base.d_ff > 0
 
@@ -145,14 +138,17 @@ def spec_block_state(rcfg: ResolvedConfig, kind: str, *, batch_sharded: bool,
 
 def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
                 kv_dtype: torch.dtype, seq_shards: int = 1,
-                head_shards: int = 1) -> LeafShapes:
+                tp: int = 1) -> LeafShapes:
     """(shape, dtype) of every state leaf of one layer.  ``kv_dtype`` is
     the storage dtype of attention caches only; a sliding-window layer's
     ring never needs more positions than its window.  ``seq_shards``
     cuts a full-attention cache's ``s_alloc`` positions over that many
-    ranks (sequence-parallel decode), ``head_shards`` an attention
-    cache's KV heads (tensor parallelism)."""
+    ranks (sequence-parallel decode); ``tp`` > 1 gives a tensor-parallel
+    rank's shards, cut as ``spec_block_state`` cuts them (an attention
+    cache's KV heads where they divide over ``tp``, a recurrent state's
+    columns)."""
     b = rcfg.base
+    head_shards = tp if rcfg.padded_kv_heads >= tp else 1
     if kind in ATTN_KINDS:
         if kind == ATTN_LOCAL:
             s_alloc = min(b.sliding_window, s_alloc)
@@ -166,30 +162,31 @@ def state_shape(rcfg: ResolvedConfig, kind: str, batch: int, s_alloc: int,
         return {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
     if kind == MLSTM:
         return ssm.mlstm_state_shape(batch, b.num_heads,
-                                     b.d_model // b.num_heads)
+                                     b.d_model // b.num_heads, tp)
     if kind == SLSTM:
-        return ssm.slstm_state_shape(batch, b.d_model)
+        return ssm.slstm_state_shape(batch, b.d_model // tp)
     if kind == RGLRU:
-        return ssm.rglru_state_shape(batch, _lru_width(rcfg))
+        return ssm.rglru_state_shape(batch, _lru_width(rcfg) // tp)
     raise ValueError(kind)
 
 
 def init_block_state(rcfg: ResolvedConfig, kind: str, batch: int,
                      s_alloc: int, kv_dtype: torch.dtype, device,
-                     seq_shards: int = 1, head_shards: int = 1
+                     seq_shards: int = 1, tp: int = 1
                      ) -> Dict[str, torch.Tensor]:
-    """A fresh state: zeroed caches; recurrent states at their initial
-    values (mLSTM/sLSTM ``m`` at ``LOG_EPS``, sLSTM ``n`` at 1e-6)."""
+    """A fresh state (``state_shape``'s leaves): zeroed caches; recurrent
+    states at their initial values (mLSTM/sLSTM ``m`` at ``LOG_EPS``,
+    sLSTM ``n`` at 1e-6)."""
     b = rcfg.base
     if kind == MLSTM:
         return ssm.init_mlstm_state(batch, b.num_heads,
-                                    b.d_model // b.num_heads, device)
+                                    b.d_model // b.num_heads, device, tp)
     if kind == SLSTM:
-        return ssm.init_slstm_state(batch, b.d_model, device)
+        return ssm.init_slstm_state(batch, b.d_model // tp, device)
     return {n: torch.zeros(shape, dtype=dt, device=device)
             for n, (shape, dt) in state_shape(rcfg, kind, batch, s_alloc,
                                               kv_dtype, seq_shards,
-                                              head_shards).items()}
+                                              tp).items()}
 
 
 def block_apply(
@@ -218,8 +215,9 @@ def block_apply(
     states come back as new tensors; ``train`` returns no state.  A
     recurrent layer ignores ``kv_len``: it runs over the whole chunk,
     bucket PAD included, as the JAX package's does.  With ``tp_mesh``
-    (attention kinds only) the attention heads and the MLP's d_ff are
-    this rank's shards (``models.attention``, ``models.layers``)."""
+    the attention heads, the MLP's d_ff and a recurrent mixer's columns
+    are this rank's shards (``models.attention``, ``models.layers``,
+    ``models.ssm``)."""
     b = rcfg.base
     aux = 0.0                  # a tensor only where a MoE FFN computes it
     h = rmsnorm_apply(p["norm1"], x, b.norm_eps)
@@ -242,16 +240,18 @@ def block_apply(
     else:
         assert slots is None, \
             "paged serving (slots) supports attention-state models only"
+        tp = dict(mesh=tp_mesh)
         if kind == MLSTM:
             mix, new_state = ssm.mlstm_apply(
                 p["mlstm"], h, state=state,
                 mode="step" if mode == "decode" else "full",
-                heads=b.num_heads)
+                heads=b.num_heads, **tp)
         elif kind == SLSTM:
             mix, new_state = ssm.slstm_apply(p["slstm"], h, state=state,
-                                             heads=b.num_heads)
+                                             heads=b.num_heads, **tp)
         elif kind == RGLRU:
-            mix, new_state = ssm.rglru_apply(p["rglru"], h, state=state)
+            mix, new_state = ssm.rglru_apply(p["rglru"], h, state=state,
+                                             **tp)
         else:
             raise ValueError(kind)
     x = x + mix

@@ -11,9 +11,13 @@ Tensor parallelism (``tp_mesh``, a mesh whose ``model`` axis is larger
 than 1, with the parameters held as this rank's shards of their
 ``spec_*``): the gated MLP is column-parallel in ``w1``/``w3`` and
 row-parallel in ``w2`` (``copy_to_model``, the local columns, the local
-rows, ``reduce_from_model``); the embedding looks up the rows of its
-vocab shard, masks the others and sums over ``model``; the tied head
-gives this rank's shard of the logits, ``[..., V / tp]``.
+rows, ``reduce_from_model``), and so is whisper's GELU ``mlp2`` in
+``w1``/``b1`` and ``w2``, its replicated ``b2`` added once after the
+sum; the embedding looks up the rows of its vocab shard, masks the
+others and sums over ``model``; the tied head gives this rank's shard of
+the logits, ``[..., V / tp]``.  The norms act on the residual stream,
+which every rank holds whole, with replicated scales (and layer-norm
+biases): they have no tensor-parallel form.
 """
 from __future__ import annotations
 
@@ -172,10 +176,17 @@ def spec_mlp2():
             "b2": (None,)}
 
 
-def mlp2_apply(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
-    """``act(x W1 + b1) W2 + b2``, the f32 biases cast to ``x.dtype``."""
+def mlp2_apply(params, x: torch.Tensor, act: str = "gelu",
+               tp_mesh=None) -> torch.Tensor:
+    """``act(x W1 + b1) W2 + b2``, the f32 biases cast to ``x.dtype``
+    (tensor-parallel: the module docstring)."""
+    if tp_mesh is not None:
+        x = copy_to_model(x, tp_mesh)
     h = ACTS[act](x @ params["w1"] + params["b1"].to(x.dtype))
-    return h @ params["w2"] + params["b2"].to(x.dtype)
+    y = h @ params["w2"]
+    if tp_mesh is not None:
+        y = reduce_from_model(y, tp_mesh)
+    return y + params["b2"].to(x.dtype)
 
 
 def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:

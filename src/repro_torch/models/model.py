@@ -43,7 +43,8 @@ shard): MoE layers take the mesh strategies (``models.moe``), and with
 the ``data`` axis (``init_states`` allocates ``s_alloc / n_data``
 positions a rank) and decode steps go through
 ``distributed.collectives.sp_decode_attention``, as the JAX package's
-``Runtime(mesh=, sp_decode=)``.  ``param_specs`` gives the logical spec
+``Runtime(mesh=, sp_decode=)``; sliding-window rings and recurrent states
+stay whole along the sequence.  ``param_specs`` gives the logical spec
 of every parameter, the JAX package's with the stacked layer axis
 dropped.
 
@@ -52,12 +53,14 @@ shards of ``param_specs`` over the mesh (``distributed.sharding
 .local_shard``; ``convert.shard_params`` cuts them), which is what GSPMD
 makes of the reference's specs: over a ``model`` axis larger than 1 the
 layers are tensor-parallel (Megatron's column/row split of the heads,
-the MLP and the vocab: ``models.layers``, ``models.attention``), MoE
-experts are this rank's slices, and ``forward`` gives this rank's vocab
-shard of the logits.  ``loss`` is then the vocab-parallel cross-entropy
+the MLP and the vocab: ``models.layers``, ``models.attention``; the
+recurrent mixers' columns: ``models.ssm``), MoE experts are this rank's
+slices, the serving states are this rank's shards of ``state_specs``
+(``init_states`` allocates them), and ``forward``, ``prefill``,
+``extend`` and ``decode_step`` give this rank's vocab shard of the
+logits.  ``loss`` is then the vocab-parallel cross-entropy
 (``vocab_parallel_xent``).  Without ``sharded`` the dense layers compute
-replicated on full parameters.  Recurrent layers take no model axis
-(they raise).
+replicated on full parameters.
 """
 from __future__ import annotations
 
@@ -151,10 +154,8 @@ class LM:
         return None
 
     @property
-    def _head_shards(self) -> int:
-        r = self.rcfg
-        return r.tp if self.tp_mesh is not None \
-            and r.padded_kv_heads >= r.tp else 1
+    def _tp_shards(self) -> int:
+        return self.rcfg.tp if self.tp_mesh is not None else 1
 
     @property
     def _seq_shards(self) -> int:
@@ -208,11 +209,12 @@ class LM:
         their initial values.  ``kv_dtype`` overrides the storage dtype of
         the KV caches only (bf16 arenas for f32 models); recurrent states
         stay f32.  With ``sp_decode`` a full-attention cache holds this
-        rank's ``s_alloc / n_data`` positions."""
+        rank's ``s_alloc / n_data`` positions; tensor-parallel, every leaf
+        is this rank's shard of ``state_specs``."""
         dt = kv_dtype or self.dtype
         return [blocks.init_block_state(self.rcfg, kind, batch, s_alloc, dt,
                                         self.device, self._seq_shards,
-                                        self._head_shards)
+                                        self._tp_shards)
                 for kind in self.kinds]
 
     def state_shapes(self, batch: int, s_alloc: int, kv_dtype=None
@@ -221,7 +223,7 @@ class LM:
         ``init_states`` allocates, per layer kind."""
         dt = kv_dtype or self.dtype
         return [blocks.state_shape(self.rcfg, kind, batch, s_alloc, dt,
-                                   self._seq_shards, self._head_shards)
+                                   self._seq_shards, self._tp_shards)
                 for kind in self.kinds]
 
     # ------------------------------------------------------- arena state API
@@ -313,10 +315,6 @@ class LM:
                      ) -> torch.Tensor:
         """Token embeddings, with qwen2-vl's ``patch_emb`` (the stubbed
         vision frontend) prepended, then the embedding scale."""
-        if self.tp_mesh is not None and any(
-                k not in blocks.ATTN_KINDS for k in self.kinds):
-            raise NotImplementedError(blocks.tp_unported(
-                self.rcfg.base.name))
         x = embed_apply(params["embed"], batch["tokens"],
                         self.tp_mesh).to(self.dtype)
         if (self.rcfg.base.frontend_stub == "vision_patches"

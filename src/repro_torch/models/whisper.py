@@ -21,9 +21,22 @@ prefill run the dense flash kernel; decode steps run the dense decode
 kernel over the self cache.  ``WhisperModel(rcfg, device=...)`` runs on
 the CUDA device by default and raises when none is present.
 ``state_specs`` gives the logical specs of the serving states, the JAX
-package's.  With ``mesh=`` and ``sharded=True`` over a ``model`` axis
-larger than 1 the entry points raise: whisper's layers are not
-tensor-parallel yet.
+package's.
+
+``WhisperModel(..., mesh=, sharded=True)`` holds the parameters as this
+rank's shards of ``param_specs`` (``convert.shard_params``); over a
+``model`` axis larger than 1 every layer is tensor-parallel, as the
+LM's are: ``frame_proj``'s columns are gathered into the residual
+stream (``gather_from_model``); the encoder's bidirectional attention
+and the decoder's self-attention run the rank's heads (whisper-base's 8
+heads padded to 16 at ``tp`` 16), the self caches hold the rank's KV
+heads; the cross-attention K/V are projected with the rank's
+``wk``/``wv`` shards and read by the rank's query heads; the GELU MLPs
+are column- then row-parallel (``layers.mlp2_apply``); the embedding,
+the tied head and ``loss`` are vocab-parallel (``model
+.vocab_parallel_xent``), and ``forward``, ``prefill`` and
+``decode_step`` give this rank's vocab shard of the logits.  The serving
+states are this rank's shards of ``state_specs``.
 """
 from __future__ import annotations
 
@@ -32,15 +45,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..config import ResolvedConfig
-from ..distributed.compat import mesh_shape
+from ..distributed.collectives import copy_to_model, gather_from_model
+from ..distributed.compat import axis_names, axis_size
 from .attention import (_proj, attention_apply, init_attention,
                         init_kv_cache, spec_attention)
 from .layers import (embed_apply, init_embed, init_layernorm, init_mlp2,
                      layernorm_apply, lm_head_apply, mlp2_apply,
                      sinusoidal_positions, spec_embed, spec_layernorm,
                      spec_mlp2)
-from .blocks import tp_unported
-from .model import token_xent
+from .model import token_xent, vocab_parallel_xent
 from .runtime import DTYPES, DeviceLike, resolve_device
 
 
@@ -53,11 +66,30 @@ class WhisperModel:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.sharded = sharded and mesh is not None
+        if self.tp_mesh is not None and rcfg.tp != axis_size(mesh, "model"):
+            raise ValueError(f"resolved for tp {rcfg.tp}, mesh model axis "
+                             f"{axis_size(mesh, 'model')}")
 
-    def _check_tp(self) -> None:
-        """Whisper's layers take no model axis larger than 1 yet."""
-        if self.sharded and mesh_shape(self.mesh).get("model", 1) > 1:
-            raise NotImplementedError(tp_unported(self.rcfg.base.name))
+    @property
+    def tp_mesh(self):
+        """The mesh when the layers are tensor-parallel (``sharded`` over
+        a ``model`` axis larger than 1), else None."""
+        if self.sharded and "model" in axis_names(self.mesh) \
+                and axis_size(self.mesh, "model") > 1:
+            return self.mesh
+        return None
+
+    @property
+    def _kv_sharded(self) -> bool:
+        return self.rcfg.padded_kv_heads >= self.rcfg.tp
+
+    @property
+    def _self_kv_heads(self) -> int:
+        """The KV heads of this rank's self-attention caches."""
+        r = self.rcfg
+        if self.tp_mesh is not None and self._kv_sharded:
+            return r.padded_kv_heads // r.tp
+        return r.padded_kv_heads
 
     @property
     def dtype(self) -> torch.dtype:
@@ -152,6 +184,21 @@ class WhisperModel:
         return {"self": [leaf(self_kv) for _ in range(self.n_dec)],
                 "cross": [leaf(cross) for _ in range(self.n_dec)]}
 
+    def init_states(self, batch: int, s_alloc: int
+                    ) -> Dict[str, List[Dict[str, torch.Tensor]]]:
+        """Zeroed serving states, tensor-parallel this rank's shards of
+        ``state_specs`` (the self caches' KV heads where they divide,
+        the cross K/V's heads)."""
+        r = self.rcfg
+        n = r.tp if self.tp_mesh is not None else 1
+        shapes = {"self": (batch, s_alloc, self._self_kv_heads, r.head_dim),
+                  "cross": (batch, r.base.encoder_seq_len,
+                            r.padded_heads // n, r.head_dim)}
+        return {part: [{k: torch.zeros(shape, dtype=self.dtype,
+                                       device=self.device)
+                        for k in ("k", "v")} for _ in range(self.n_dec)]
+                for part, shape in shapes.items()}
+
     # ------------------------------------------------------------------ core
     def _positions(self, x: torch.Tensor, positions: torch.Tensor
                    ) -> torch.Tensor:
@@ -161,54 +208,67 @@ class WhisperModel:
         """frame_emb [B, S_enc, D] (stub frontend output) -> encoder
         states [B, S_enc, D]."""
         S = frame_emb.shape[1]
-        x = frame_emb.to(self.dtype) @ params["frame_proj"]
+        tp = self.tp_mesh
+        x = frame_emb.to(self.dtype)
+        if tp is None:
+            x = x @ params["frame_proj"]
+        else:
+            x = gather_from_model(copy_to_model(x, tp) @ params["frame_proj"],
+                                  tp, -1)
         x = self._positions(x, torch.arange(S, device=x.device)[None])
         for lp in params["enc"]:
             h = layernorm_apply(lp["norm1"], x)
             mix, _ = attention_apply(lp["attn"], h, mode="full",
-                                     causal=False, use_rope=False)
+                                     causal=False, use_rope=False,
+                                     tp_mesh=tp, kv_sharded=self._kv_sharded)
             x = x + mix
             x = x + mlp2_apply(lp["mlp"], layernorm_apply(lp["norm2"], x),
-                               "gelu")
+                               "gelu", tp)
         return layernorm_apply(params["enc_norm"], x)
 
     def _cross_kv(self, params, enc_out: torch.Tensor
                   ) -> List[Dict[str, torch.Tensor]]:
-        """Cross-attention K/V of every decoder layer [B, S_enc, H, Dh]."""
+        """Cross-attention K/V of every decoder layer [B, S_enc, H, Dh]
+        (tensor-parallel: the rank's heads)."""
+        if self.tp_mesh is not None:
+            enc_out = copy_to_model(enc_out, self.tp_mesh)
         return [{"k": _proj(enc_out, lp["cross_attn"]["wk"]),
                  "v": _proj(enc_out, lp["cross_attn"]["wv"])}
                 for lp in params["dec"]]
 
     def _dec_layer(self, lp, x, *, mode, self_cache, cross_kv, positions,
                    cache_len):
+        tp = self.tp_mesh
         h = layernorm_apply(lp["norm1"], x)
         mix, new_cache = attention_apply(
             lp["self_attn"], h, mode=mode, causal=True, positions=positions,
             cache=self_cache, cache_len=cache_len,
-            want_cache=(mode != "full"), use_rope=False)
+            want_cache=(mode != "full"), use_rope=False, tp_mesh=tp,
+            kv_sharded=self._kv_sharded)
         x = x + mix
         mix, _ = attention_apply(lp["cross_attn"],
                                  layernorm_apply(lp["norm2"], x),
-                                 kv_ctx=(cross_kv["k"], cross_kv["v"]))
+                                 kv_ctx=(cross_kv["k"], cross_kv["v"]),
+                                 tp_mesh=tp)
         x = x + mix
         x = x + mlp2_apply(lp["mlp"], layernorm_apply(lp["norm3"], x),
-                           "gelu")
+                           "gelu", tp)
         return x, new_cache
 
     def _embed(self, params, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-        x = embed_apply(params["embed"], tokens).to(self.dtype)
+        x = embed_apply(params["embed"], tokens, self.tp_mesh).to(self.dtype)
         return self._positions(x, positions)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         return lm_head_apply(params["embed"],
-                             layernorm_apply(params["dec_norm"], x))
+                             layernorm_apply(params["dec_norm"], x),
+                             tp_mesh=self.tp_mesh)
 
     # ------------------------------------------------------------ entry pts
     def forward(self, params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward -> (logits [B, S, V] f32, aux = 0)."""
-        self._check_tp()
         cross = self._cross_kv(params, self.encode(params,
                                                    batch["frame_emb"]))
         tokens = batch["tokens"]
@@ -225,13 +285,14 @@ class WhisperModel:
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy of ``labels`` (no aux term)."""
         logits, _ = self.forward(params, batch)
+        if self.tp_mesh is not None:
+            return vocab_parallel_xent(logits, batch, self.tp_mesh)
         return token_xent(logits, batch)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 s_alloc: Optional[int] = None):
         """Encode, then teacher-force the prompt into self caches of
         ``s_alloc`` positions -> (last-token logits [B, V], states)."""
-        self._check_tp()
         cross = self._cross_kv(params, self.encode(params,
                                                    batch["frame_emb"]))
         tokens = batch["tokens"]
@@ -241,7 +302,7 @@ class WhisperModel:
         zero = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
         new_self = []
         for lp, ckv in zip(params["dec"], cross):
-            cache = init_kv_cache(B, s_alloc or S, self.rcfg.padded_kv_heads,
+            cache = init_kv_cache(B, s_alloc or S, self._self_kv_heads,
                                   self.rcfg.head_dim, self.dtype,
                                   tokens.device)
             x, nc = self._dec_layer(lp, x, mode="extend", self_cache=cache,
@@ -255,7 +316,6 @@ class WhisperModel:
                     pos: torch.Tensor):
         """tokens [B], pos [B] -> (logits [B, V], states); the self caches
         take the token's K/V at ``pos`` in place."""
-        self._check_tp()
         x = self._embed(params, tokens[:, None], pos[:, None])
         for lp, sc, ckv in zip(params["dec"], states["self"],
                                states["cross"]):

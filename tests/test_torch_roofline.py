@@ -18,8 +18,12 @@ formulas.
   collectives on a fake world; whole cells (``llama3_2_1b decode_32k`` at
   ``n_rep_override`` 1 and 2 and at full depth, the R = 1, 2
   extrapolation equal to the full count); a FAILED cell with its
-  exception, alone and under ``--all``.
+  exception, alone and under ``--all``; a cell of each tensor-parallel
+  recurrent model, of whisper and gemma3's ``long_500k`` at ``--n-rep
+  1``; the sLSTM's folded count of its token loop (one token counted T
+  times) against the loop traced token by token.
 """
+import contextlib
 import json
 import os
 import pathlib
@@ -112,7 +116,8 @@ def test_report_and_main_name_failed_cells(tmp_path):
             "mesh": "single", "devices": 256, "flops": 3.4e9,
             "bytes_accessed": 1.5e9, "collective_bytes": {}}
     bad = {"ok": False, "arch": "whisper_base", "shape": "decode_32k",
-           "mesh": "single", "error": "NotImplementedError: whisper"}
+           "mesh": "single",
+           "error": "TimeoutExpired: no result after 600 s"}
     path = tmp_path / "r.json"
     path.write_text(json.dumps([good, bad]))
     text = rf.main(["--results", str(path), "--card",
@@ -120,7 +125,7 @@ def test_report_and_main_name_failed_cells(tmp_path):
                     "--out", str(tmp_path / "t.md")])
     assert text.startswith(rf.HEADER)
     assert "| whisper_base | decode_32k | single | FAILED: " \
-        "NotImplementedError: whisper |" in text
+        "TimeoutExpired: no result after 600 s |" in text
     assert "**memory**" in text
     assert (tmp_path / "t.md").read_text() == text
 
@@ -361,7 +366,8 @@ def test_collective_counter_per_kind_and_axis():
 
 def test_dryrun_cells(tmp_path):
     """llama3.2-1b decode_32k on the 16 x 16 mesh at full depth and cut
-    to one and two layers, and whisper's FAILED cell, subprocesses at
+    to one and two layers, and FAILED cells (one whose arch the registry
+    lacks; under ``--all``, cells past their timeout), subprocesses at
     once."""
     procs = {
         "full": _dryrun(tmp_path, "full", "--arch", "llama3_2_1b", "--shape",
@@ -370,12 +376,13 @@ def test_dryrun_cells(tmp_path):
                        "decode_32k", "--mesh", "single", "--n-rep", "1"),
         "two": _dryrun(tmp_path, "two", "--arch", "llama3_2_1b", "--shape",
                        "decode_32k", "--mesh", "single", "--n-rep", "2"),
-        "whisper": _dryrun(tmp_path, "whisper", "--arch", "whisper_base",
+        "unknown": _dryrun(tmp_path, "unknown", "--arch", "nosuch_arch",
                            "--shape", "decode_32k", "--mesh", "single"),
-        # --all over a filter: each cell in a worker process
+        # --all over a filter: each cell in a worker process, killed at
+        # its timeout long before it can count
         "all": _dryrun(tmp_path, "all", "--all", "--arch", "whisper_base",
                        "--shape", "decode_32k,prefill_32k", "--mesh",
-                       "single"),
+                       "single", "--timeout", "0.01"),
     }
     res, rcs = {}, {}
     for name, (proc, out) in procs.items():
@@ -388,15 +395,17 @@ def test_dryrun_cells(tmp_path):
         res[name] = json.loads(out.read_text())
     assert not torch.distributed.is_initialized()
     full, one, two, bad = (res[k] for k in ("full", "one", "two",
-                                             "whisper"))
-    assert rcs == {"full": 0, "one": 0, "two": 0, "whisper": 1, "all": 1}
+                                             "unknown"))
+    assert rcs == {"full": 0, "one": 0, "two": 0, "unknown": 1, "all": 1}
     # a FAILED cell names its exception, alone and under --all
     assert bad["ok"] is False
-    assert bad["error"].startswith("NotImplementedError: whisper-base")
+    assert bad["error"].startswith("KeyError: \"unknown arch 'nosuch_arch'")
     assert rf.analyze(bad, H100) is None
     assert [(r["shape"], r["ok"]) for r in res["all"]] == [
         ("prefill_32k", False), ("decode_32k", False)]
-    assert res["all"][1] == bad
+    for r in res["all"]:
+        assert r["error"] == "TimeoutExpired: no result after 0.01 s", r
+        assert rf.analyze(r, H100) is None
     # the full count and the extrapolation of the R = 1, 2 counts agree
     # exactly (the JAX package's method), collectives per axis included
     cfg = get_config("llama3_2_1b")
@@ -432,5 +441,131 @@ def test_dryrun_cells(tmp_path):
     assert row.memory_s <= row.memory_eager_s
 
 
+def test_dryrun_tensor_parallel_recurrent_and_sp_cells(tmp_path):
+    """A cell of xlstm-350m, recurrentgemma-2b and whisper-base, and
+    gemma3-27b's long_500k, on the 16 x 16 mesh at ``--n-rep 1``
+    (subprocesses at once): each counts, with its collectives on
+    ``model`` and its kernels at the layers' launches."""
+    cells = {("xlstm_350m", "prefill_32k"): {},
+             ("recurrentgemma_2b", "decode_32k"): {"decode_attention": 1},
+             ("whisper_base", "train_4k"): {"flash_attention": 18},
+             ("gemma3_27b", "long_500k"): {"decode_attention": 7,
+                                          "decode_attention_lse": 1}}
+    procs = {c: _dryrun(tmp_path, "_".join(c), "--arch", c[0], "--shape",
+                        c[1], "--mesh", "single", "--n-rep", "1")
+             for c in cells}
+    for (arch, shape), (proc, out) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=TIMEOUT)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0 and out.exists(), err[-2000:]
+        r = json.loads(out.read_text())
+        assert r["ok"] and r["tp"] == 16 and r["devices"] == 256, r
+        assert {k: v["calls"] for k, v in r["kernels"].items()} \
+            == cells[arch, shape]
+        model = r["collective_bytes_by_axis"]["model"]
+        assert model.get("all-gather", 0) > 0, r
+        if shape == "long_500k":
+            # the log-sum-exp combine over the sequence's shards
+            assert r["collective_bytes_by_axis"]["data"]["all-reduce"] > 0
+        assert r["flops"] > 0 and r["bytes_accessed"] > 0
+        assert rf.analyze(r, H100) is not None
+
+
+@contextlib.contextmanager
+def _every_step():
+    """``kmeta.steps`` running every step on ``meta`` too: the
+    step-by-step trace the folded count is held against."""
+    steps = kmeta.steps
+
+    @contextlib.contextmanager
+    def each(n, like, fold=True):
+        yield range(n)
+    kmeta.steps = each
+    try:
+        yield
+    finally:
+        kmeta.steps = steps
+
+
+def _slstm_count_probe() -> dict:
+    """Run in a subprocess: an sLSTM layer's forward and backward over
+    T = 16 tokens on ``meta`` at one rank's shards of a fake world of 8
+    (a 2 x 4 mesh: with 2 heads over ``tp`` 4 each token gathers h, with
+    4 heads each rank holds a whole head), under a ``StepCounter``, with
+    its token loops folded and traced token by token."""
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import logical_to_pspec, \
+        shard_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ssm
+    dryrun.join_fake_world(8)
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    groups = {mesh.get_group(a).group_name: a for a in ("data", "model")}
+    B, T, D = 2, 16, 64
+    out = {}
+    for heads in (2, 4):
+        spec = ssm.spec_slstm()
+        full = {"w": (D, 4 * D), "r": (4, heads, D // heads, D // heads),
+                "b": (4 * D,), "wo": (D, D), "wd": (D, D)}
+        p = {k: torch.empty(shard_shape(s, logical_to_pspec(spec[k], mesh),
+                                        mesh), device="meta",
+                            requires_grad=True) for k, s in full.items()}
+        x = torch.empty((B, T, D), device="meta", requires_grad=True)
+
+        def count():
+            counter = dryrun.StepCounter(groups, (p, x))
+            cell, cells = ssm._slstm_cell, []
+
+            def spy(*a):
+                cells.append(1)
+                return cell(*a)
+            ssm._slstm_cell = spy
+            try:
+                with counter:
+                    y, _ = ssm.slstm_apply(p, x, heads=heads, mesh=mesh)
+                    torch.autograd.grad(y.sum(), [x, *p.values()])
+            finally:
+                ssm._slstm_cell = cell
+            return {"flops": counter.flops, "flops_f32": counter.flops_f32,
+                    "bytes": counter.bytes,
+                    "collectives": counter.collective_by_axis,
+                    "ops": counter.ops, "cells": len(cells)}
+        folded = count()
+        with _every_step():
+            traced = count()
+        out[heads] = {"folded": folded, "traced": traced}
+    return out
+
+
+def test_slstm_folded_count_equals_the_traced_loop():
+    """The dry-run counts sLSTM's loop over tokens once at the cell's
+    shapes and multiplies by T: FLOPs, bytes and collectives per axis
+    equal those of the loop traced token by token, forward and backward,
+    with a collective a token (h gathered, its gradient reduce-scattered)
+    and without."""
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__)), "--slstm-count"],
+        env=_env(), capture_output=True, text=True, timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for heads, run in got.items():
+        folded, traced = run["folded"], run["traced"]
+        # one token's cell forward and backward, against all 16 of each
+        assert (folded.pop("cells"), traced.pop("cells")) == (2, 32)
+        assert folded == traced, (heads, folded, traced)
+        assert folded["flops"] > 0 and folded["bytes"] > 0
+    # with 2 heads over tp 4 a token's h is gathered and its gradient
+    # reduce-scattered over ``model``; with 4 the loop needs neither
+    per_token = got["2"]["traced"]["collectives"]["model"]
+    assert per_token["all-gather"] > got["4"]["traced"]["collectives"][
+        "model"]["all-gather"]
+    assert per_token["all-to-all"] > got["4"]["traced"]["collectives"][
+        "model"].get("all-to-all", 0)
+
+
 if __name__ == "__main__" and sys.argv[1:] == ["--collectives"]:
     print(json.dumps(_collectives_probe()))
+if __name__ == "__main__" and sys.argv[1:] == ["--slstm-count"]:
+    print(json.dumps(_slstm_count_probe()))

@@ -412,20 +412,26 @@ def test_vocab_parallel_xent_matches_jax(results, mname):
                                    rtol=0)
 
 
-def test_tp_raises_for_recurrent_layers_and_whisper():
-    """Tensor parallelism stops at the layers it has: recurrent mixers
-    and whisper raise instead of running replicated."""
+@pytest.mark.parametrize("mode", ["extend", "decode"])
+def test_tp_raises_for_paged_caches(mode):
+    """Paged caches (``slots``) are the one serving layout tensor
+    parallelism does not take: they raise, naming ``ROADMAP.md``,
+    instead of running on replicated weights."""
     from repro_torch.distributed.compat import MeshShape
-    from repro_torch.launch.specs import make_model
+    from repro_torch.models.attention import attention_apply, \
+        init_attention
     mesh = MeshShape((1, 2), ("data", "model"))
-    for arch in ("xlstm_350m", "whisper_base"):
-        with _registry_gives(t_get_reduced(arch, dtype="float32")):
-            model, _ = make_model(arch, mesh, "train_4k", device="cpu")
-        params = model.init(0)
-        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                 "labels": torch.zeros((1, 8), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.loss(params, batch)
+    gen = torch.Generator().manual_seed(0)
+    p = init_attention(gen, 32, 2, 2, 16, torch.float32)
+    arena = {"k": torch.zeros((3, 16, 2, 16)),
+             "v": torch.zeros((3, 16, 2, 16))}
+    S = 4 if mode == "extend" else 1
+    kw = dict(cache_len=torch.zeros(1, dtype=torch.int32)) \
+        if mode == "decode" else {}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention_apply(p, torch.zeros((1, S, 32)), mode=mode, cache=arena,
+                        slots=torch.zeros(1, dtype=torch.long),
+                        want_cache=True, tp_mesh=mesh, **kw)
 
 
 if __name__ == "__main__":

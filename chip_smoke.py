@@ -9,6 +9,12 @@ Phases, each printed as it runs; any failure raises and the script exits
 non-zero without printing a result:
 
 1. device   the card's name and power limit as ``nvidia-smi`` reports them;
+            ``lint [port]``: the port's static-analysis linter
+            (``repro_torch.analysis``, rules RSA001-RSA005) over
+            ``src/repro_torch`` and its CUDA sources, in-process, against
+            the committed baseline: its finding, baseline-suppressed and
+            inline-suppressed counts are printed, and a new finding or a
+            stale baseline entry fails the run; then
             the hand-written kernels are built from ``csrc/`` (one ``nvcc``
             per source, all at once) and their registers and spills are
             printed (decode and flash attention per kernel and head_dim;
@@ -267,6 +273,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -274,6 +281,7 @@ import re
 import subprocess
 import sys
 import time
+import tokenize
 from pathlib import Path
 
 import numpy as np
@@ -425,6 +433,33 @@ WORLD1_PLAIN_QROWS = 256
 CHAOS_SEED = 23
 CHAOS_PLAN = dict(launch_failure_p=0.25, nan_p=0.15, latency_spike_p=0.1,
                   spike_s=1e-4, arena_loss_at=4)
+
+
+def lint_phase() -> None:
+    """``lint [port]``: the port's linter over its own tree, before any
+    kernel is built.  A new finding or a stale baseline entry fails."""
+    from repro_torch.analysis import lint
+
+    t = time.perf_counter()
+    root = ROOT / "src" / "repro_torch"
+    findings = lint.lint_paths([root])
+    new, stale, suppressed = lint.diff_baseline(
+        findings, lint.load_baseline(lint._DEFAULT_BASELINE))
+    inline = 0
+    for f in root.rglob("*.py"):
+        toks = tokenize.generate_tokens(io.StringIO(f.read_text()).readline)
+        inline += sum(1 for t in toks if t.type == tokenize.COMMENT
+                      and lint._DISABLE_RE.search(t.string))
+    for f in new:
+        print(f"lint [port]: NEW {f.format()}")
+    for e in stale:
+        print(f"lint [port]: STALE {e['rule']} {e['file']}: "
+              f"{e['line_text']!r}")
+    print(f"lint [port]: {len(findings)} finding(s), {suppressed} "
+          f"suppressed by the baseline, {inline} inline suppression "
+          f"comment(s), {len(new)} new, {len(stale)} stale")
+    assert not new and not stale, "lint [port]: the port's tree is not clean"
+    print(f"phase lint [port]: wall {time.perf_counter() - t:.1f} s")
 
 
 def device_line() -> str:
@@ -4264,6 +4299,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(device_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    lint_phase()
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {len(_build.SOURCES)} kernel sources in "

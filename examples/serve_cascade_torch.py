@@ -25,8 +25,10 @@ Figure 2):
      prefix prefills once per (backend, op, bucket) into a pinned row that
      every document's block table points at;
   8. record a Perfetto trace of a two-tenant chaos run;
-  9. replay the chaos feed under the runtime arena sanitizer (every
-     launch's row sets bracketed; zero violations);
+  9. lint the port with its static-analysis linter (rules RSA001-RSA005
+     against the committed baseline), then replay the chaos feed under
+     the runtime arena sanitizer (every launch's row sets bracketed;
+     zero violations);
  10. re-serve the feed with four launches in flight: preds, confs and $
      bitwise those of one in flight.
 
@@ -206,10 +208,18 @@ def main():
           f"{1e3 * tl['device_s']:.1f} ms; wrote serve_trace.json (open "
           f"at https://ui.perfetto.dev)")
 
-    print("9. sanitized chaos drain")
-    # Every launch's read/write row sets are bracketed: slot-aliasing
-    # races, pinned-prefix writes outside copy-on-write and
-    # use-after-release raise ``ArenaRaceError`` instead of corrupting KV.
+    print("9. static analysis + sanitized chaos drain")
+    # The port's AST linter (rules RSA001-RSA005: autograd.Function
+    # hygiene, CUDA binding conventions, in-place arena writes committed
+    # on success, merge metadata, explicit random streams — catalogue in
+    # ``repro_torch.analysis.__doc__``) gates the tree against the
+    # committed suppression baseline.  Then every launch's read/write row
+    # sets are bracketed: slot-aliasing races, pinned-prefix writes
+    # outside copy-on-write and use-after-release raise
+    # ``ArenaRaceError`` instead of corrupting KV.
+    from repro_torch.analysis import lint as rsa_lint
+    rc = rsa_lint.main(["src/repro_torch"])
+    assert rc == 0, "linter found new violations (see output above)"
     for be in backends.values():
         be.sanitize = True          # or ARENA_SANITIZE=1 in the env
         be._sanitizer = None

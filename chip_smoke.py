@@ -87,7 +87,7 @@ non-zero without printing a result:
             ``benchmarks/serve_engine.py`` (thresholds 2.0, batch 8):
             every document resolved in both, new and cached tokens,
             batches and $ the same; the preds' agreement, docs/s and
-            ``host_overhead_s`` of each.
+            host time of each.
             ``serve [prefix]``: the same queries over longer operations on
             the doc-before-op plane and on the prefix plane at layout
             blocks 16 and 512, inflight 1 and 3: all resolved, kernel
@@ -1228,8 +1228,10 @@ def seed_engine_phase(models, params, docs):
     once to warm up and once timed with the counters zeroed.  Every
     document resolves in both; new and cached tokens (per stage),
     batches and $ are the same.  Prints the preds' agreement (bf16 and
-    another batch composition may flip a pred), docs/s and
-    ``host_overhead_s`` of each.  Returns the two runs' launch counts."""
+    another batch composition may flip a pred), docs/s and the host
+    time of each (the seed engine's ``host_overhead_s``; the arena
+    server's launch walls less its completion waits).  Returns the two
+    runs' launch counts."""
     from repro_torch.core.tasks import Cascade, Task, TaskConfig
     from repro_torch.data.tokenizer import HashWordTokenizer
     from repro_torch.serving.engine import CascadeEngine, LMBackend
@@ -1274,8 +1276,10 @@ def seed_engine_phase(models, params, docs):
     assert s_counts["flash_attention"] > 0 and not any(
         v for k, v in s_counts.items() if k != "flash_attention"), s_counts
     agree = sum(s_pred[d] == res.pred[d] for d in docs)
-    hosts = [sum(be.host_overhead_s for be in b.values())
-             for b in (seed_be, arena_be)]
+    # the arena server's host time: its launches' walls less the waits
+    tl = arena.telemetry_snapshot()["timeline"]
+    hosts = [sum(be.host_overhead_s for be in seed_be.values()),
+             tl["wall_s"] - tl["device_s"]]
     print(f"serve [seed engine, llama3.2-1b proxy and oracle, forced "
           f"ladder, {len(docs)} docs, batch 8]: every document resolved in "
           f"both engines; new tokens {st.total_new_tokens()}, cached "
@@ -1285,7 +1289,7 @@ def seed_engine_phase(models, params, docs):
     for name, wall, host, counts in (("seed", s_wall, hosts[0], s_counts),
                                      ("arena", a_wall, hosts[1], a_counts)):
         print(f"serve [seed engine, {name}]: {wall:.3f} s "
-              f"({len(docs) / wall:.2f} docs/s), host_overhead_s "
+              f"({len(docs) / wall:.2f} docs/s), host s "
               f"{host:.4f}, kernel launches "
               f"{ {k: v for k, v in counts.items() if v} }")
     print(f"serve [seed engine]: preds agree on {agree} of {len(docs)} "

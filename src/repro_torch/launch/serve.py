@@ -303,9 +303,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print(f"timeline: sched {1e3 * tl['sched_s']:.1f} ms, host "
           f"{1e3 * tl['host_s']:.1f} ms, dispatch "
           f"{1e3 * tl['dispatch_s']:.1f} ms, device "
-          f"{1e3 * tl['device_s']:.1f} ms, idle wait "
-          f"{1e3 * tl['idle_wait_s']:.1f} ms; mean launch gap "
-          f"{tl['mean_launch_gap_ms']:.2f} ms")
+          f"{1e3 * tl['device_s']:.1f} ms (host wait), idle wait "
+          f"{1e3 * tl['idle_wait_s']:.1f} ms, gc {1e3 * tl['gc_s']:.1f} ms")
+    print(f"phases: enqueue extend {1e3 * tl['extend_dispatch_s']:.1f} ms, "
+          f"decode {1e3 * tl['decode_dispatch_s']:.1f} ms; device extend "
+          f"{1e3 * tl['extend_device_s']:.1f} ms, decode "
+          f"{1e3 * tl['decode_device_s']:.1f} ms, mean gap between "
+          f"launches {tl['mean_launch_gap_ms']:.3f} ms (device clock; 0 "
+          f"without one)")
     if args.trace_out:
         from ..serving.telemetry import write_chrome_trace
         write_chrome_trace(server.telemetry, args.trace_out)

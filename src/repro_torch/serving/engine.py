@@ -110,15 +110,15 @@ import torch
 from ..core.tasks import Cascade
 from ..data.tokenizer import PAD, HashWordTokenizer, class_token
 from ..kernels.ops import _check_slots
-from ..launch.roofline import bandwidth_utilization
 from ..models.runtime import DTYPES, resolve_device
 from .arena import BucketArena
 from .scheduler import (FAILED, RESOLVED, TIMED_OUT, DocRequest, LaunchSpec,
                         RequestQueue, RetryPolicy, SchedulingPolicy,
                         ServeStats, SlotAllocator, StageConfig, fraction_len)
-from .telemetry import (EV_COW_COPY, EV_ESCALATE, EV_EVICT, EV_LAUNCH,
-                        EV_PREFIX_HIT, EV_QUARANTINE, EV_RETRY, EV_SUBMIT,
-                        LaunchRecord, Telemetry)
+from .telemetry import (DEVICE_FIELDS, EV_COW_COPY, EV_ESCALATE, EV_EVICT,
+                        EV_LAUNCH, EV_PREFIX_HIT, EV_QUARANTINE, EV_RETRY,
+                        EV_SUBMIT, CudaClock, LaunchRecord, PhaseMarks,
+                        Telemetry)
 
 
 class ServerStalledError(RuntimeError):
@@ -221,8 +221,10 @@ class GroupTicket:
     bracket (``san_ticket``) stays OPEN across the ticket's lifetime, so
     any structural arena operation that touches the ticket's rows while
     it is in flight raises ``ArenaRaceError``.  Host-side billing
-    metadata (``new_d``/``cached_d``/``op_len``) and structural traffic
-    (``copy_bytes``/``hbm_bytes``) are captured at dispatch."""
+    metadata (``new_d``/``cached_d``/``op_len``), structural traffic
+    (``copy_bytes``) and the padding counts are captured at dispatch;
+    ``marks`` (None with telemetry off) hold the launch's phase
+    boundaries until ``complete_group`` resolves them into ``timing``."""
 
     ids: List[int]
     bucket: int
@@ -235,11 +237,15 @@ class GroupTicket:
     op_len: int                      # billed op suffix (P on prefix plane)
     san: Any                         # ArenaSanitizer or None
     san_ticket: Any                  # open begin_launch bracket (or None)
-    timing: Dict[str, float]         # host/dispatch at dispatch; +device
+    timing: Dict[str, float]         # host/extend/decode/dispatch at
+    #                                  dispatch; +device (+device clock)
     ts_enqueue: float                # step call began (dispatch segment)
     ts_dispatched: float             # dispatch_group returned control
     copy_bytes: int
-    hbm_bytes: Optional[float]
+    rows_computed: int = 0           # row-tokens computed: width x chunk
+    #                                  + width x decode steps
+    tokens_real: int = 0             # real document + op tokens of them
+    marks: Optional[PhaseMarks] = None
     ts_sync: float = 0.0             # completion wait entered
     ts_ready: float = 0.0            # device results host-visible
 
@@ -304,14 +310,7 @@ class LMBackend:
     _next_prefix_id: int = -1        # pseudo doc ids for prefix rows (< 0,
     #                                  disjoint from server request ids >= 0)
     pressure_retired: int = 0        # buckets freed mid-eviction (byte budget)
-    # host assembly + async dispatch wall-clock; the per-launch
-    # decomposition (host/dispatch/device) lives in ``last_timing``
-    host_overhead_s: float = 0.0
     telemetry: Optional[Any] = field(default=None, repr=False)  # Telemetry
-    last_timing: Optional[Dict[str, float]] = field(default=None, repr=False)
-    last_copy_bytes: int = field(default=0, repr=False)
-    last_hbm_bytes: Optional[float] = field(default=None, repr=False)
-    _params_nbytes: Optional[int] = field(default=None, repr=False)
     # Runtime arena sanitizer (analysis.sanitizer.ArenaSanitizer): per-row
     # ownership epochs + launch read/write-set brackets.  None = follow the
     # ARENA_SANITIZE env var; True/False force it.  Host-side only.
@@ -353,45 +352,15 @@ class LMBackend:
         self.prefix_hits = 0
         self.cow_copies = 0
         self.pressure_retired = 0
-        self.host_overhead_s = 0.0
-        self.last_timing = None
-        self.last_copy_bytes = 0
-        self.last_hbm_bytes = None
         if self._sanitizer is not None:
             self._sanitizer.reset()
 
-    def params_nbytes(self) -> int:
-        """Device bytes of the parameter set (memoized): the fixed term
-        of the decode-launch HBM-traffic estimate."""
-        if self._params_nbytes is None:
-            def walk(t):
-                if isinstance(t, torch.Tensor):
-                    return t.numel() * t.element_size()
-                if isinstance(t, dict):
-                    return sum(walk(v) for v in t.values())
-                return sum(walk(v) for v in t)
-            self._params_nbytes = int(walk(self.params))
-        return self._params_nbytes
-
-    def _note_launch_traffic(self, bucket: int, batch: int, op_len: int,
-                             n_new: int, kv_true: np.ndarray) -> None:
-        """Per-launch structural traffic for the telemetry timeline:
-        copy/undo-log bytes and, for decode-only launches, the estimated
-        device bytes the step streams (params once per suffix token + the
-        batch's live KV)."""
+    def _copy_bytes(self, bucket: int, batch: int, op_len: int) -> int:
+        """Per-launch structural traffic for the telemetry timeline: the
+        gather plane's row copy or the paged plane's undo-log bytes."""
         if self.uses_paged_kv():
-            self.last_copy_bytes = self.paged_copy_bytes_per_launch(
-                bucket, batch, op_len)
-        else:
-            self.last_copy_bytes = self.gather_bytes_per_launch(bucket,
-                                                                batch)
-        if n_new == 0:
-            s_alloc = self._s_alloc_for(bucket)
-            kv_bytes = (float(kv_true[:batch].sum())
-                        * self.slot_nbytes(bucket) / s_alloc)
-            self.last_hbm_bytes = op_len * (self.params_nbytes() + kv_bytes)
-        else:
-            self.last_hbm_bytes = None
+            return self.paged_copy_bytes_per_launch(bucket, batch, op_len)
+        return self.gather_bytes_per_launch(bucket, batch)
 
     # ------------------------------------------------------------ slot admin
     def cached_len(self, doc_id: int) -> int:
@@ -681,7 +650,8 @@ class LMBackend:
         return self.paged
 
     def _gather_step(self, arena_states, slots, new_tok, op_tok, kv_true,
-                     ext_true, *, c_len: int, op_len: int):
+                     ext_true, *, c_len: int, op_len: int,
+                     marks: Optional[PhaseMarks] = None):
         model, params = self.model, self.params
         st = model.take_states(arena_states, slots)
         if new_tok.shape[1] > 0:
@@ -691,6 +661,8 @@ class LMBackend:
             _, st = model.extend(params, {"tokens": new_tok}, st,
                                  q_offset=c_len, kv_len=ext_true)
             model.put_states(arena_states, slots, st)
+        if marks is not None:
+            marks.split()
         # operation suffix: masked decode steps over the gathered COPY
         # (kv_true = per-doc TRUE prefix length -> pad KV is invisible;
         # the doc snapshot in the arena survives untouched)
@@ -702,7 +674,8 @@ class LMBackend:
         return logits
 
     def _paged_step(self, arena_states, slots, new_tok, op_tok, kv_true,
-                    ext_true, *, c_len: int, op_len: int):
+                    ext_true, *, c_len: int, op_len: int,
+                    marks: Optional[PhaseMarks] = None):
         # PAGED data plane: the arena is never row-copied.  The extend
         # writes only the chunk's KV into the addressed rows and the
         # kernels read arena rows through slot ids.
@@ -725,6 +698,8 @@ class LMBackend:
         # in ``finally``: a step that raises mid-suffix leaves the rows as
         # they were (commit on success, as the reference's rebinding of
         # the arena after a returned step does).
+        if marks is not None:
+            marks.split()
         logits = None
         B = slots.shape[0]
         saved = model.take_kv_window(arena_states, slots, kv_true, op_len)
@@ -738,7 +713,8 @@ class LMBackend:
         return logits
 
     def _prefix_step(self, arena_states, slots, block_tables, new_tok,
-                     last_tok, kv_true, ext_true, *, c_len: int, p_len: int):
+                     last_tok, kv_true, ext_true, *, c_len: int, p_len: int,
+                     marks: Optional[PhaseMarks] = None):
         # OP-FIRST layout: the shared operation prefix occupies cache
         # positions [0, p_len) — prefilled once into a pinned arena row
         # that the leading block-table columns point at — and the document
@@ -757,6 +733,8 @@ class LMBackend:
         # documents.  The re-fed token overwrites one KV position with
         # decode-path values; a width-1 undo window, restored in
         # ``finally``, keeps the cached row bitwise pristine.
+        if marks is not None:
+            marks.split()
         pos = p_len + kv_true - 1
         saved = model.take_kv_window(arena_states, slots, pos, 1)
         try:
@@ -768,11 +746,11 @@ class LMBackend:
         return logits
 
     def _enqueue(self, arena: BucketArena, signature, reads, writes, step,
-                 *args, **kwargs):
+                 *args, marks: Optional[PhaseMarks] = None, **kwargs):
         """Run ``step`` under an open sanitizer bracket and record the
-        completion event after its logits.  Returns (logits, event,
-        sanitizer ticket); the bracket closes here only if the step
-        raises."""
+        completion event after its logits (timing-enabled where ``marks``
+        carry a device clock).  Returns (logits, event, sanitizer ticket);
+        the bracket closes here only if the step raises."""
         san = arena.sanitizer
         ticket = None
         if san is not None:
@@ -781,9 +759,9 @@ class LMBackend:
                                       scratch=arena.scratch_slot)
         try:
             with torch.no_grad():
-                logits = step(*args, **kwargs)
-            event = None
-            if self.device.type == "cuda":
+                logits = step(*args, marks=marks, **kwargs)
+            event = marks.end_event() if marks is not None else None
+            if event is None and self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
         except BaseException:
@@ -1026,11 +1004,11 @@ class LMBackend:
                                   self._true_len(toks, fraction))
             kv_true[i] = self._true_len(toks, fraction)
         t1 = time.perf_counter()
-        self.host_overhead_s += t1 - t0
 
         step = self._paged_step if self.uses_paged_kv() else \
             self._gather_step
         t2 = time.perf_counter()
+        marks = self._open_phases(t2)
         logits, event, ticket = self._enqueue(
             arena, (self.name, "step", bucket, eff_c, f_len, B),
             set(slots), set(slots), step,
@@ -1038,10 +1016,8 @@ class LMBackend:
             self._to_device(new_tok),
             self._to_device(np.asarray(op_tokens, np.int32)),
             self._to_device(kv_true), self._to_device(ext_true),
-            c_len=eff_c, op_len=op_len)
+            c_len=eff_c, op_len=op_len, marks=marks)
         t3 = time.perf_counter()
-        self.host_overhead_s += t3 - t2    # async dispatch
-        self._note_launch_traffic(bucket, B, op_len, n_new, kv_true)
         if n_new > 0:
             for i, d in enumerate(ids):
                 slot = slots[i]
@@ -1051,11 +1027,11 @@ class LMBackend:
             ids=list(ids), bucket=bucket, width=Bp, n_classes=n_classes,
             logits=logits, event=event, new_d=new_d,
             cached_d=cached_d, op_len=op_len, san=arena.sanitizer,
-            san_ticket=ticket,
-            timing={"host": t1 - t0, "dispatch": t3 - t2},
+            san_ticket=ticket, timing=self._timing(t1 - t0, t2, t3, marks),
             ts_enqueue=t2, ts_dispatched=t3,
-            copy_bytes=self.last_copy_bytes,
-            hbm_bytes=self.last_hbm_bytes)
+            copy_bytes=self._copy_bytes(bucket, B, op_len),
+            rows_computed=Bp * (n_new + op_len),
+            tokens_real=int(new_d.sum()) + B * op_len, marks=marks)
 
     def _dispatch_group_prefix(self, ids, doc_tokens, bucket, f_len,
                                fraction, eff_c, op_tokens, n_classes,
@@ -1179,9 +1155,9 @@ class LMBackend:
             kv_true[i] = kt
             last_tok[i] = toks[kt - 1]
         t1 = time.perf_counter()
-        self.host_overhead_s += t1 - t0
 
         t2 = time.perf_counter()
+        marks = self._open_phases(t2)
         # block-table columns resolve to slots + the pinned prefix row:
         # writes land in the private rows, the row is the shared read
         logits, event, ticket = self._enqueue(
@@ -1191,11 +1167,8 @@ class LMBackend:
             arena.states, self._to_device(slots_arr), self._to_device(bt),
             self._to_device(new_tok), self._to_device(last_tok),
             self._to_device(kv_true), self._to_device(ext_true),
-            c_len=eff_c, p_len=p_eff)
+            c_len=eff_c, p_len=p_eff, marks=marks)
         t3 = time.perf_counter()
-        self.host_overhead_s += t3 - t2    # async dispatch
-        # undo log here is the width-1 readout window, not the op suffix
-        self._note_launch_traffic(bucket, B, 1, n_new, kv_true)
         if n_new > 0:
             for i, d in enumerate(ids):
                 slot = slots[i]
@@ -1205,10 +1178,30 @@ class LMBackend:
             ids=list(ids), bucket=bucket, width=Bp, n_classes=n_classes,
             logits=logits, event=event, new_d=new_d,
             cached_d=cached_d, op_len=P, san=san, san_ticket=ticket,
-            timing={"host": t1 - t0, "dispatch": t3 - t2},
+            timing=self._timing(t1 - t0, t2, t3, marks),
             ts_enqueue=t2, ts_dispatched=t3,
-            copy_bytes=self.last_copy_bytes,
-            hbm_bytes=self.last_hbm_bytes)
+            # undo log here is the width-1 readout window, not the op suffix
+            copy_bytes=self._copy_bytes(bucket, B, 1),
+            # one readout decode step, where the standard plane decodes
+            # the op suffix (billed as P tokens all the same)
+            rows_computed=Bp * (n_new + 1),
+            tokens_real=int(new_d.sum()) + B, marks=marks)
+
+    def _open_phases(self, t_start: float) -> Optional[PhaseMarks]:
+        tm = self.telemetry
+        return tm.open_phases(t_start) if tm is not None else None
+
+    @staticmethod
+    def _timing(host: float, t2: float, t3: float,
+                marks: Optional[PhaseMarks]) -> Dict[str, float]:
+        """A ticket's host timing at dispatch: assembly and the enqueue
+        ``[t2, t3]``, split at the phase mark so that ``extend + decode
+        == dispatch`` exactly."""
+        if marks is None:
+            return {"host": host, "dispatch": t3 - t2}
+        ext, dec = marks.host_phases(t3)
+        return {"host": host, "extend": ext, "decode": dec,
+                "dispatch": ext + dec}
 
     def complete_group(self, ticket: GroupTicket):
         """Blocking half of ``run_group``: wait for the ticket's event,
@@ -1230,7 +1223,10 @@ class LMBackend:
         t1 = time.perf_counter()
         ticket.ts_ready = t1
         ticket.timing["device"] = t1 - t0
-        self.last_timing = dict(ticket.timing)
+        if ticket.marks is not None:
+            ticket.timing.update(self.telemetry.resolve_phases(
+                ticket.marks, ticket.event))
+            ticket.marks = ticket.event = None
         pred, conf = self.class_confidences(logits, ticket.n_classes)
         return pred, conf, ticket.new_d + ticket.op_len, ticket.cached_d
 
@@ -1275,6 +1271,12 @@ class DocFuture:
     doc_id: int                       # the CALLER's id (ext_id)
     _req: DocRequest = field(repr=False)
     _server: "CascadeServer" = field(repr=False)
+
+    @property
+    def request_id(self) -> int:
+        """The server's request id: the ``rid`` of the document's span
+        events in the telemetry hub."""
+        return self._req.doc_id
 
     @property
     def done(self) -> bool:
@@ -1499,9 +1501,15 @@ class CascadeServer:
     _arena_bytes_peak: int = field(default=0, repr=False)
     _prefix_hits: int = field(default=0, repr=False)
     _cow_copies: int = field(default=0, repr=False)
+    # ---- the running step's span: records it closed, dispatch it spent
+    _step_recs: Optional[List[LaunchRecord]] = field(default=None,
+                                                     repr=False)
+    _step_dispatch_s: float = field(default=0.0, repr=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+        if self.device.type == "cuda" and self.telemetry.clock is None:
+            self.telemetry.clock = CudaClock(self.device)
         for name, be in self.backends.items():
             if be.device != self.device:
                 raise ValueError(f"backend {name!r} runs on {be.device}, "
@@ -1795,9 +1803,27 @@ class CascadeServer:
         scheduler-pick / host / dispatch / device segments (host is the
         residual, so the four sum to the record's wall clock exactly);
         overlapped launches additionally stamp their in-flight window
-        (``inflight_s``) — see ``serving/telemetry.py``.
+        (``inflight_s``) — see ``serving/telemetry.py``.  The step's own
+        host time (its duration less the completion waits and the
+        dispatch spans of the launches it enqueued) lands on the record
+        of the last launch it completed as ``step_host_s`` (carried to
+        the next ok record where that launch failed or none completed).
         """
-        t_begin = now = time.perf_counter()
+        t_in = time.perf_counter()
+        if not self.telemetry.enabled:
+            return self._step(t_in)
+        self._step_recs, self._step_dispatch_s = [], 0.0
+        try:
+            return self._step(t_in)
+        finally:
+            recs, self._step_recs = self._step_recs, None
+            if recs or self._step_dispatch_s > 0.0:
+                self.telemetry.note_step_host(
+                    recs, time.perf_counter() - t_in - self._step_dispatch_s
+                    - sum(r.device_s for r in recs))
+
+    def _step(self, t_begin: float) -> List[Tuple[int, int]]:
+        now = t_begin
         terminal: List[Tuple[int, int]] = []
         for req in self._queue.pop_expired(now):    # deadline beats backoff
             self._finish(req, TIMED_OUT, now, error="deadline exceeded")
@@ -1842,6 +1868,8 @@ class CascadeServer:
                 self._record_flight(fl, ok=False, error=str(exc))
                 self._note_progress(True)
                 return terminal
+            if self._step_recs is not None and fl.group.timing:
+                self._step_dispatch_s += fl.group.timing["dispatch"]
             self._flights.append(fl)
             dispatched = True
             self._max_inflight_seen = max(self._max_inflight_seen,
@@ -1993,8 +2021,9 @@ class CascadeServer:
         stage step and its sync; scheduler-pick is the pre-launch
         boundary stamp; the host segment is the residual, so the four
         sum to the record's wall clock exactly.  Overlapped records also
-        carry the dispatch-return -> sync-begin window (``inflight_s``)
-        and their enqueue/ready stamps for the gap histogram."""
+        carry the dispatch-return -> sync-begin window (``inflight_s``),
+        their enqueue/ready stamps, the phase split of the dispatch and
+        the device clock's fields, and the padding counts."""
         tm = self.telemetry
         if not tm.enabled:
             return
@@ -2008,6 +2037,7 @@ class CascadeServer:
         wall = t_end - fl.t_begin
         sched = fl.t_sched - fl.t_begin
         host = max(wall - sched - dispatch - device, 0.0)
+        done = ok and g is not None
         rec = LaunchRecord(
             index=fl.attempt, ts_start=fl.t_begin, model=launch.model,
             op_id=launch.op_id, bucket=launch.bucket,
@@ -2015,18 +2045,21 @@ class CascadeServer:
             width=g.width if g is not None else self.batch_size,
             sched_s=sched, host_s=host,
             dispatch_s=dispatch, device_s=device, wall_s=wall,
-            copy_bytes=g.copy_bytes if (ok and g is not None) else 0,
+            copy_bytes=g.copy_bytes if done else 0,
             ok=ok, error=error,
             ts_enqueue=g.ts_enqueue if g is not None else 0.0,
             ts_ready=g.ts_ready if g is not None else 0.0,
             inflight_s=(max(g.ts_sync - g.ts_dispatched, 0.0)
-                        if g is not None and g.ts_sync > 0.0 else 0.0))
-        if ok and rec.decode_only:
-            hbm = g.hbm_bytes if g is not None else None
-            if hbm and device > 0.0:
-                rec.hbm_bytes = hbm
-                rec.bw_util = bandwidth_utilization(hbm, device)
+                        if g is not None and g.ts_sync > 0.0 else 0.0),
+            extend_dispatch_s=timing.get("extend", dispatch),
+            decode_dispatch_s=timing.get("decode", 0.0),
+            rows_computed=g.rows_computed if done else 0,
+            tokens_real=g.tokens_real if done else 0)
+        for k in DEVICE_FIELDS:
+            setattr(rec, k, timing.get(k))
         tm.record_launch(rec)
+        if self._step_recs is not None:
+            self._step_recs.append(rec)
         tm.set_gauge("serve_queue_depth", len(self._queue))
 
     def _sync_cached_for_stage(self, req: DocRequest) -> None:

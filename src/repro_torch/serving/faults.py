@@ -177,8 +177,8 @@ class _InjectedTicket:
     # were launched, and there is no completion event to wait on
     _POISONED_DEFAULTS = {"timing": None, "ts_enqueue": 0.0,
                           "ts_dispatched": 0.0, "ts_sync": 0.0,
-                          "ts_ready": 0.0, "copy_bytes": 0,
-                          "hbm_bytes": None, "width": 0, "event": None}
+                          "ts_ready": 0.0, "copy_bytes": 0, "width": 0,
+                          "event": None}
 
     def __init__(self, inner: Any, fail_exc: Optional[Exception],
                  corrupt: bool, spike_s: float, ids: List[int]):

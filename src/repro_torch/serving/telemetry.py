@@ -1,18 +1,21 @@
 """Bounded-memory tracing + metrics for the cascade serving plane.
 
-Zero external dependencies (numpy only), zero device work: every probe is
-a host-side ``time.perf_counter()`` read or a dict update around the
-jitted stage steps, so the fault-free data plane stays bitwise identical
-whether telemetry is off, at ``"counters"`` (the default), or at
-``"trace"``.  All storage is fixed-capacity — ring buffers for events and
-launch records, a capped label-set registry for metrics — so memory stays
-bounded under million-document traffic.
+No dependencies beyond the standard library.  Every probe is a
+host-side ``time.perf_counter()`` read or a dict update around the eager
+stage steps, or — on CUDA, at ``"counters"`` and up — a timing event
+recorded on the stream between them; none touches the data, so the
+fault-free data plane stays bitwise identical whether telemetry is off,
+at ``"counters"`` (the default), or at ``"trace"``.  All storage is
+fixed-capacity — ring buffers for events, launch records and GC pauses,
+a capped label-set registry for metrics — so memory stays bounded under
+million-document traffic.
 
 Levels
 ------
-``off``       every probe is a no-op.
+``off``       every probe is a no-op; no event is made.
 ``counters``  metric registry + per-launch timeline records (default).
-``trace``     additionally records per-document span events.
+``trace``     additionally records per-document span events, the launch
+              phases' device events on the host clock, and the GC pauses.
 
 Event schema (span traces, ``level="trace"``)
 ---------------------------------------------
@@ -60,7 +63,10 @@ disjoint segments that sum to the record's wall clock:
                 threshold routing, queue pushes (the residual of the
                 other three — everything that is not dispatch/device)
 ``dispatch_s``  the stage-step call returning (async dispatch)
-``device_s``    the completion-side wait on the launch's CUDA event
+``device_s``    the HOST's wait on the launch's completion event inside
+                ``complete_group`` (sync plus the logits' copy): not
+                device time — a launch that finished while the host was
+                busy elsewhere waits ~0
 
 SEGMENT SEMANTICS UNDER OVERLAPPED DISPATCH (``CascadeServer.inflight``
 > 1): timing is PER-TICKET and never forces synchronization — the
@@ -74,40 +80,71 @@ wall spans dispatch of younger launches at K>1, so walls of
 consecutive records overlap and ``host_s`` — still the residual —
 absorbs the in-flight window (the four segments still sum to ``wall_s``
 exactly).  The hidden window is the overlap win:
-``timeline["overlap_hidden_frac"] = inflight / (inflight + device)``
-(≈0 at ``inflight=1``, → 1 when sched+host work fully hides device
-waits), and ``timeline["mean_launch_gap_ms"]`` measures
-``max(enqueue(next) - ready(prev), 0)`` over consecutive ok records —
-the device idle window between launches, which ahead-of-time dispatch
-drives toward zero.  At ``inflight=1`` every stamp reduces to the
-pre-overlap decomposition (``device_s`` measured immediately after
-dispatch; ``inflight_s`` ~ 0).
+``timeline["overlap_hidden_frac"] = inflight / (inflight + device)``.
 
-The old ``LMBackend.host_overhead_s`` scalar survives as a derived view:
-it accumulates ``host assembly + dispatch`` exactly as before, and
-``snapshot()["timeline"]["host_overhead_s"]`` derives the same quantity
-from the segment totals.  Each ``LaunchRecord`` also carries batch
-occupancy, structural copy/undo-log bytes, and — for decode-only
-launches — a ``launch/roofline.py``-derived HBM bandwidth-utilization
-estimate.
+Launch phases
+-------------
+The stage step is the extend of the document chunk, then the op-suffix
+decode (the prefix plane's one readout decode).  The backend marks the
+boundary immediately before the decode; each record carries the two
+phases of its enqueue on the host clock, children of the launch
+(``LaunchRecord.index``) whose ``dispatch_s`` they split exactly:
+
+``extend_dispatch_s``  enqueue start to the mark: the device copies of
+                       the launch's inputs, the gather, the extend and
+                       the scatter
+``decode_dispatch_s``  the mark to the enqueue's return: the undo-window
+                       save, the decode steps and the restore
+
+On CUDA (a ``CudaClock`` on the hub, installed by the server) and at
+``counters`` and up, timing events at the enqueue's start, the mark and
+completion give the device clock's view, resolved into floats once the
+launch has completed (no event outlives its launch):
+
+``extend_device_s`` / ``decode_device_s``  the device's wall time
+        between the events (busy or not)
+``device_gap_s``  from the previous launch's completion event to this
+        launch's start event (one stream): the device's gap between
+        launches, which ``mean_launch_gap_s`` reads
+``dev_start`` / ``dev_split`` / ``dev_end``  (``trace`` only) the three
+        events on the host's ``perf_counter`` clock: ``clear()`` at
+        ``trace`` synchronises, stamps the host clock and records an
+        anchor event, and every later event maps to
+        ``anchor_host + elapsed(anchor, event)``; a launch dispatched
+        before the anchor gets none
+
+Each record also counts the rows its launch computed against the real
+tokens among them (``rows_computed``: width x chunk for the extend plus
+width x op suffix; ``tokens_real``: the chunk's document tokens plus
+batch x op suffix), the garbage collector's pause seconds since the
+previous record closed (``gc_s``; one process-wide ``gc.callbacks``
+entry feeds every live hub), and ``step_host_s``: the server step's own
+time — its duration less the completion waits and the dispatch spans of
+the launches it enqueued — on the ok record of the launch it completed
+(a step that completed none carries it to the next ok record).
 
 Exporters
 ---------
 ``chrome_trace``/``write_chrome_trace``  Chrome trace-event JSON,
     loadable in Perfetto / chrome://tracing: one process track per
-    backend (launch slices with nested segment slices), one per query
-    (per-document span slices with instant events), doc spans tied to
-    launches via the ``launch`` arg on their instants.
-``MetricRegistry.to_prometheus``  Prometheus text exposition format.
+    backend (launch slices with nested segment slices, the dispatch
+    slice split into ``extend`` and ``decode``; at ``trace`` a
+    ``device`` thread of the event-timed phase windows), one per query
+    (per-document span slices with instant events, tied to launches
+    via the ``launch`` arg on their instants) and ``host:gc`` (the
+    collector's pauses).
 ``Telemetry.snapshot``  plain-dict summary embedded by
     ``benchmarks/serve_engine.py --smoke`` (structural counters gated by
     ``check_regression.py``, timings ungated).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
-from dataclasses import dataclass, field
+import time
+import weakref
+from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 LEVEL_OFF = "off"
@@ -325,36 +362,19 @@ class MetricRegistry:
                     out[tag] = m.value
         return out
 
-    def to_prometheus(self) -> str:
-        """Prometheus text exposition format (text/plain; version 0.0.4)."""
-        lines: List[str] = []
-        for name, (kind, series) in sorted(self._metrics.items()):
-            lines.append(f"# TYPE {name} {kind}")
-            for key, m in sorted(series.items()):
-                lbl = ",".join(f'{k}="{v}"' for k, v in key)
-                if kind == "histogram":
-                    cum = 0
-                    for bound, c in zip(m.bounds, m.counts):
-                        cum += c
-                        le = "+Inf" if math.isinf(bound) else repr(bound)
-                        sep = "," if lbl else ""
-                        lines.append(
-                            f'{name}_bucket{{{lbl}{sep}le="{le}"}} {cum}')
-                    suffix = f"{{{lbl}}}" if lbl else ""
-                    lines.append(f"{name}_sum{suffix} {m.sum}")
-                    lines.append(f"{name}_count{suffix} {m.count}")
-                else:
-                    suffix = f"{{{lbl}}}" if lbl else ""
-                    lines.append(f"{name}{suffix} {m.value}")
-        return "\n".join(lines) + "\n"
-
 
 # -------------------------------------------------------- launch timeline
+# record fields resolved from the device clock at completion
+DEVICE_FIELDS = ("extend_device_s", "decode_device_s", "device_gap_s",
+                 "dev_start", "dev_split", "dev_end")
+
+
 @dataclass
 class LaunchRecord:
-    """One dispatched launch: signature, occupancy, copy traffic, and the
+    """One dispatched launch: signature, occupancy, copy traffic, the
     scheduler/host/dispatch/device wall-time decomposition (the four
-    segments are disjoint and sum to ``wall_s`` by construction)."""
+    segments are disjoint and sum to ``wall_s`` by construction), and the
+    launch's phases and counters (module docstring, "Launch phases")."""
 
     index: int                     # server launch index (attempt order)
     ts_start: float                # perf_counter at step entry
@@ -368,19 +388,33 @@ class LaunchRecord:
     sched_s: float = 0.0
     host_s: float = 0.0
     dispatch_s: float = 0.0
-    device_s: float = 0.0
+    device_s: float = 0.0          # the host's wait on completion, not
+    #                                device time (module docstring)
     wall_s: float = 0.0
     copy_bytes: int = 0            # gather copy / paged undo-log bytes
-    hbm_bytes: Optional[float] = None   # est. device bytes moved (decode)
-    bw_util: Optional[float] = None     # fraction of the HBM roof achieved
     ok: bool = True
     error: Optional[str] = None
     # per-ticket overlap stamps (0.0 when the launch never dispatched)
-    ts_enqueue: float = 0.0        # perf_counter entering the jit call
-    ts_ready: float = 0.0          # perf_counter after block_until_ready
+    ts_enqueue: float = 0.0        # perf_counter entering the stage step
+    ts_ready: float = 0.0          # perf_counter after the completion wait
     inflight_s: float = 0.0        # dispatched->sync window hidden behind
     #                                other launches' sched/host work; NOT
     #                                a wall-clock segment (see docstring)
+    # phases of ``dispatch_s`` on the host clock (they sum to it exactly)
+    extend_dispatch_s: float = 0.0
+    decode_dispatch_s: float = 0.0
+    # device clock (CUDA, ``counters`` and up; None elsewhere)
+    extend_device_s: Optional[float] = None
+    decode_device_s: Optional[float] = None
+    device_gap_s: Optional[float] = None
+    dev_start: Optional[float] = None     # host clock, ``trace`` only
+    dev_split: Optional[float] = None
+    dev_end: Optional[float] = None
+    # padding: row-tokens the launch computed, and the real ones
+    rows_computed: int = 0
+    tokens_real: int = 0
+    gc_s: float = 0.0              # collector pauses since the last record
+    step_host_s: float = 0.0       # the completing step's own host time
 
     @property
     def occupancy(self) -> float:
@@ -394,9 +428,105 @@ class LaunchRecord:
         return {"sched": self.sched_s, "host": self.host_s,
                 "dispatch": self.dispatch_s, "device": self.device_s}
 
+    def phase_spans(self) -> List[Tuple[str, str, float, float]]:
+        """The launch's phase spans as ``(clock, phase, start, end)`` on
+        the host's clock; their parent is the launch (``index``).  The
+        device windows appear where the record has host-clock device
+        stamps (``trace`` on CUDA)."""
+        if self.ts_enqueue <= 0.0:
+            return []
+        split = self.ts_enqueue + self.extend_dispatch_s
+        out = [("host", "extend", self.ts_enqueue, split),
+               ("host", "decode", split, split + self.decode_dispatch_s)]
+        if self.dev_start is not None:
+            out += [("device", "extend", self.dev_start, self.dev_split),
+                    ("device", "decode", self.dev_split, self.dev_end)]
+        return out
+
+
+class CudaClock:
+    """Timing events on the device's current stream: the hub's device
+    clock on CUDA (a test may hand the hub any object with these three
+    methods)."""
+
+    def __init__(self, device: Any):
+        import torch
+        self._torch = torch
+        self.device = device
+
+    def mark(self) -> Any:
+        ev = self._torch.cuda.Event(enable_timing=True)
+        ev.record(self._torch.cuda.current_stream(self.device))
+        return ev
+
+    @staticmethod
+    def seconds(a: Any, b: Any) -> float:
+        """Device seconds from event ``a`` to event ``b`` (both done)."""
+        return a.elapsed_time(b) * 1e-3
+
+    def sync(self) -> None:
+        self._torch.cuda.synchronize(self.device)
+
+
+@dataclass
+class PhaseMarks:
+    """One launch's phase boundaries while it is in flight: the host
+    stamps of the enqueue's start and of the phase mark and, with a
+    device clock, the timing events there (the completion event is the
+    ticket's).  ``origin`` is the hub's clock origin at dispatch."""
+
+    t_start: float
+    clock: Any = None
+    origin: Any = None
+    ev_start: Any = None
+    ev_split: Any = None
+    t_split: float = 0.0
+
+    def split(self) -> None:
+        """The phase mark: the extend ends, the decode begins."""
+        self.t_split = time.perf_counter()
+        if self.clock is not None:
+            self.ev_split = self.clock.mark()
+
+    def end_event(self) -> Any:
+        """The completion event, timing-enabled (None without a clock)."""
+        return self.clock.mark() if self.clock is not None else None
+
+    def host_phases(self, t_end: float) -> Tuple[float, float]:
+        """(extend, decode) seconds of the enqueue ending at ``t_end``."""
+        split = self.t_split if self.t_split > 0.0 else t_end
+        return split - self.t_start, t_end - split
+
+
+class _GcWatch:
+    """The process's one ``gc.callbacks`` entry: stamps each collection's
+    start and stop and hands the pause to every live hub (held weakly, so
+    a dropped hub leaves the set with no call of its own)."""
+
+    def __init__(self) -> None:
+        self.hubs: "weakref.WeakSet[Telemetry]" = weakref.WeakSet()
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: Dict[str, Any]) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        t1 = time.perf_counter()
+        for hub in list(self.hubs):
+            hub._note_gc(self._t0, t1, info.get("generation", -1))
+
+    def watch(self, hub: "Telemetry") -> None:
+        if self not in gc.callbacks:
+            gc.callbacks.append(self)
+        self.hubs.add(hub)
+
+
+_GC_WATCH = _GcWatch()
+
 
 # --------------------------------------------------------------- telemetry
 _DOC_META_FACTOR = 4     # doc-meta map capacity, in trace capacities
+_GC_CAPACITY = 16384     # GC pauses kept at ``trace``
 
 
 class Telemetry:
@@ -415,7 +545,15 @@ class Telemetry:
         self.level = level
         self.events = TraceBuffer(trace_capacity)
         self.launches = TraceBuffer(timeline_capacity)
+        self.gc_pauses = TraceBuffer(_GC_CAPACITY)  # (start, end, gen)
         self.registry = MetricRegistry(max_series=max_series)
+        # device clock: a ``CudaClock`` on CUDA (installed by the server)
+        self.clock: Any = None
+        self._doc_meta: Dict[int, Tuple[int, int]] = {}
+        self._reset()
+        _GC_WATCH.watch(self)
+
+    def _reset(self) -> None:
         self.idle_wait_s = 0.0
         # running totals survive ring overwrites
         self.event_kinds: Dict[str, int] = {}
@@ -427,8 +565,17 @@ class Telemetry:
         self.device_total_s = 0.0
         self.wall_total_s = 0.0
         self.inflight_total_s = 0.0
-        self._prev_ready = 0.0      # last ok record's ts_ready (gap histo)
-        self._doc_meta: Dict[int, Tuple[int, int]] = {}
+        self.phase_total_s = {"extend_dispatch": 0.0, "decode_dispatch": 0.0,
+                              "extend_device": 0.0, "decode_device": 0.0}
+        self.gc_total_s = 0.0
+        self.rows_computed_total = 0
+        self.tokens_real_total = 0
+        self._gc_pending = 0.0       # pauses not yet on a record
+        self._step_host_pending = 0.0  # step host time not yet on one
+        # device clock origin: (event, host stamp or None); the anchor
+        # when the host stamp is set
+        self._origin: Optional[Tuple[Any, Optional[float]]] = None
+        self._prev_dev_end: Optional[float] = None  # seconds past origin
 
     # -- levels ----------------------------------------------------------
     @property
@@ -515,10 +662,61 @@ class Telemetry:
             self.registry.counter("serve_idle_wait_seconds_total"
                                   ).inc(seconds)
 
+    def _note_gc(self, t0: float, t1: float, generation: int) -> None:
+        """One collection's pause (``_GcWatch``).  The collector may run
+        at any point of the interpreter, so this only adds floats and, at
+        ``trace``, writes into the preallocated ring: no dict grows."""
+        if not self.enabled:
+            return
+        self._gc_pending += t1 - t0
+        self.gc_total_s += t1 - t0
+        if self.tracing:
+            self.gc_pauses.append((t0, t1, generation))
+
+    # -- launch phases ---------------------------------------------------
+    def open_phases(self, t_start: float) -> Optional[PhaseMarks]:
+        """A launch's phase marks, opened at its enqueue's start (None at
+        ``off``).  With a device clock, records the start event (and the
+        clock's origin, once after each ``clear``)."""
+        if not self.enabled:
+            return None
+        m = PhaseMarks(t_start)
+        if self.clock is not None:
+            if self._origin is None:
+                self._origin = (self.clock.mark(), None)
+            m.clock, m.origin = self.clock, self._origin
+            m.ev_start = self.clock.mark()
+        return m
+
+    def resolve_phases(self, m: PhaseMarks, end_event: Any
+                       ) -> Dict[str, float]:
+        """After the launch's completion event has been waited on: its
+        device-clock fields (``DEVICE_FIELDS``) as floats, and the
+        events dropped.  Launches resolve in dispatch order (the server
+        completes FIFO on one stream), which the device gap relies on."""
+        if m.ev_split is None or end_event is None:
+            return {}
+        sec = m.clock.seconds
+        ext, dec = sec(m.ev_start, m.ev_split), sec(m.ev_split, end_event)
+        out = {"extend_device_s": ext, "decode_device_s": dec}
+        if m.origin is self._origin:
+            end = sec(m.origin[0], end_event)
+            start = end - dec - ext
+            if self._prev_dev_end is not None:
+                out["device_gap_s"] = start - self._prev_dev_end
+            self._prev_dev_end = end
+            host = m.origin[1]
+            if host is not None and self.tracing:
+                out.update(dev_start=host + start, dev_split=host + end - dec,
+                           dev_end=host + end)
+        m.origin = m.ev_start = m.ev_split = None
+        return out
+
     # -- launch timeline -------------------------------------------------
     def record_launch(self, rec: LaunchRecord) -> None:
         if not self.enabled:
             return
+        rec.gc_s, self._gc_pending = self._gc_pending, 0.0
         self.launches.append(rec)
         self.launch_total += 1
         if not rec.ok:
@@ -529,40 +727,43 @@ class Telemetry:
         self.device_total_s += rec.device_s
         self.wall_total_s += rec.wall_s
         self.inflight_total_s += rec.inflight_s
-        if rec.ok and rec.ts_enqueue > 0.0:
-            # gap histogram: device idle between one launch becoming
-            # ready and the next entering the queue (0 under overlap)
-            if self._prev_ready > 0.0:
-                self.observe("serve_launch_gap_seconds",
-                             max(rec.ts_enqueue - self._prev_ready, 0.0))
-            self._prev_ready = rec.ts_ready
+        self.rows_computed_total += rec.rows_computed
+        self.tokens_real_total += rec.tokens_real
         be = rec.model or "?"
         self.count("serve_launches_total", 1, backend=be,
                    ok=str(rec.ok).lower())
         self.observe("serve_launch_wall_seconds", rec.wall_s, backend=be)
         for seg, v in rec.segments().items():
             self.observe("serve_launch_segment_seconds", v, segment=seg)
-        if rec.bw_util is not None:
-            self.observe("serve_decode_bw_utilization", rec.bw_util,
-                         backend=be)
+        if rec.ts_enqueue > 0.0:
+            for key, v in (("extend_dispatch", rec.extend_dispatch_s),
+                           ("decode_dispatch", rec.decode_dispatch_s),
+                           ("extend_device", rec.extend_device_s),
+                           ("decode_device", rec.decode_device_s)):
+                if v is None:
+                    continue
+                self.phase_total_s[key] += v
+
+    def note_step_host(self, recs: List[LaunchRecord],
+                       seconds: float) -> None:
+        """A server step's own host time: onto the last ok record among
+        the step's ``recs``, or, where the step closed none, carried to
+        the next ok record (as the collector's pauses are), so a failed
+        launch loses none of it."""
+        self._step_host_pending += seconds
+        for rec in reversed(recs):
+            if rec.ok:
+                rec.step_host_s = self._step_host_pending
+                self._step_host_pending = 0.0
+                return
 
     def mean_launch_gap_s(self) -> float:
-        """Mean device idle window between consecutive surviving launch
-        records — the gap ROADMAP item 2's async dispatch targets.
-
-        When both records carry per-ticket stamps the gap is
-        ``max(enqueue(next) - ready(prev), 0)``: zero whenever the next
-        launch was enqueued before the previous one's results were
-        needed (the overlap win), so zeros COUNT toward the mean.
-        Stamp-less records (never dispatched) fall back to the legacy
-        wall-clock formula over positive gaps."""
-        recs = [r for r in self.launches.items() if r.ok]
-        gaps: List[float] = []
-        for a, b in zip(recs, recs[1:]):
-            if a.ts_ready > 0.0 and b.ts_enqueue > 0.0:
-                gaps.append(max(b.ts_enqueue - a.ts_ready, 0.0))
-            elif b.ts_start >= a.ts_start + a.wall_s:
-                gaps.append(b.ts_start - (a.ts_start + a.wall_s))
+        """Mean device gap between consecutive launches over the
+        surviving records: one launch's completion event to the next
+        one's start event on the stream (``device_gap_s``; 0.0 without
+        a device clock)."""
+        gaps = [r.device_gap_s for r in self.launches.items()
+                if r.device_gap_s is not None]
         return sum(gaps) / len(gaps) if gaps else 0.0
 
     # -- summaries -------------------------------------------------------
@@ -584,8 +785,20 @@ class Telemetry:
         # local import: roofline depends only on stdlib, but serving
         # modules must stay importable without the launch package cycle
         from ..launch.roofline import overlap_hidden_fraction
-        utils = [r.bw_util for r in self.launches.items()
-                 if r.bw_util is not None]
+        timeline = {
+            "sched_s": self.sched_total_s,
+            "host_s": self.host_total_s,
+            "dispatch_s": self.dispatch_total_s,
+            "device_s": self.device_total_s,
+            "wall_s": self.wall_total_s,
+            "idle_wait_s": self.idle_wait_s,
+            "inflight_s": self.inflight_total_s,
+            "overlap_hidden_frac": overlap_hidden_fraction(
+                self.inflight_total_s, self.device_total_s),
+            "mean_launch_gap_ms": 1e3 * self.mean_launch_gap_s(),
+            "gc_s": self.gc_total_s,
+        }
+        timeline.update({f"{k}_s": v for k, v in self.phase_total_s.items()})
         return {
             "level": self.level,
             "counters": {
@@ -598,41 +811,27 @@ class Telemetry:
                 "metric_series": self.registry.series_count(),
                 "dropped_metric_series": self.registry.dropped_series,
                 "segments_sum_ok": self.segments_sum_ok(),
+                "rows_computed": self.rows_computed_total,
+                "tokens_real": self.tokens_real_total,
             },
-            "timeline": {
-                "sched_s": self.sched_total_s,
-                "host_s": self.host_total_s,
-                "dispatch_s": self.dispatch_total_s,
-                "device_s": self.device_total_s,
-                "wall_s": self.wall_total_s,
-                # derived view of the pre-telemetry lumped scalar
-                "host_overhead_s": self.host_total_s + self.dispatch_total_s,
-                "idle_wait_s": self.idle_wait_s,
-                "inflight_s": self.inflight_total_s,
-                "overlap_hidden_frac": overlap_hidden_fraction(
-                    self.inflight_total_s, self.device_total_s),
-                "mean_launch_gap_ms": 1e3 * self.mean_launch_gap_s(),
-                "decode_bw_util_mean": (sum(utils) / len(utils)
-                                        if utils else 0.0),
-            },
+            "timeline": timeline,
         }
 
     def clear(self) -> None:
+        """Drop every record and total.  At ``trace`` with a device
+        clock, also anchor the clock: synchronise (the device is then
+        idle), stamp the host clock and record the anchor event, so every
+        later launch's device events map onto ``perf_counter``."""
         self.events.clear()
         self.launches.clear()
+        self.gc_pauses.clear()
         self.registry = MetricRegistry(max_series=self.registry.max_series)
-        self.idle_wait_s = 0.0
-        self.event_kinds.clear()
-        self.launch_total = 0
-        self.failed_launch_total = 0
-        self.sched_total_s = 0.0
-        self.host_total_s = 0.0
-        self.dispatch_total_s = 0.0
-        self.device_total_s = 0.0
-        self.wall_total_s = 0.0
-        self.inflight_total_s = 0.0
-        self._prev_ready = 0.0
         self._doc_meta.clear()
+        self._reset()
+        if self.tracing and self.clock is not None:
+            self.clock.sync()
+            host = time.perf_counter()
+            self._origin = (self.clock.mark(), host)
 
 
 # --------------------------------------------------------------- exporters
@@ -640,16 +839,22 @@ def chrome_trace(tm: Telemetry) -> Dict[str, Any]:
     """Chrome trace-event JSON (Perfetto-loadable) from a telemetry hub.
 
     Track layout: one process per backend — launch slices ("X" events)
-    with the four wall-time segments as nested child slices — and one
-    process per query with one thread per document: the document's span
-    is a slice from its first to last event, every span event an instant
-    on it (``launch`` instants carry the launch index that ties them to
-    the backend track).
+    with the four wall-time segments as nested child slices, the
+    ``dispatch`` slice split into ``extend`` and ``decode`` children, and
+    (``trace`` on CUDA) a ``device`` thread of the event-timed phase
+    windows; one process per query with one thread per document: the
+    document's span is a slice from its first to last event, every span
+    event an instant on it (``launch`` instants carry the launch index
+    that ties them to the backend track); and ``host:gc``, one slice per
+    collection.
     """
     recs = list(tm.launches.items())
     spans = tm.spans()
+    pauses = list(tm.gc_pauses.items())
     stamps = [r.ts_start for r in recs]
+    stamps += [r.dev_start for r in recs if r.dev_start is not None]
     stamps += [evs[0][0] for evs in spans.values() if evs]
+    stamps += [p[0] for p in pauses]
     t0 = min(stamps) if stamps else 0.0
 
     def us(t: float) -> float:
@@ -667,15 +872,16 @@ def chrome_trace(tm: Telemetry) -> Dict[str, Any]:
                            "tid": 0, "args": {"name": label}})
         return pid
 
+    device_tids = set()
     for r in recs:
         pid = pid_for(f"backend:{r.model or '?'}")
         args = {"launch": r.index, "op": r.op_id, "bucket": r.bucket,
                 "cached_len": r.cached_len, "f_len": r.f_len,
                 "batch": r.batch, "width": r.width,
                 "occupancy": round(r.occupancy, 4),
-                "copy_bytes": r.copy_bytes, "ok": r.ok}
-        if r.bw_util is not None:
-            args["bw_util"] = round(r.bw_util, 6)
+                "copy_bytes": r.copy_bytes,
+                "rows_computed": r.rows_computed,
+                "tokens_real": r.tokens_real, "ok": r.ok}
         if r.error:
             args["error"] = r.error
         events.append({"ph": "X", "pid": pid, "tid": 0,
@@ -688,7 +894,37 @@ def chrome_trace(tm: Telemetry) -> Dict[str, Any]:
             events.append({"ph": "X", "pid": pid, "tid": 0, "name": seg,
                            "cat": "segment", "ts": us(cursor),
                            "dur": round(dur * 1e6, 3)})
+            if seg == "dispatch" and r.ts_enqueue > 0.0:
+                sub = cursor
+                for phase, d in (("extend", r.extend_dispatch_s),
+                                 ("decode", r.decode_dispatch_s)):
+                    events.append({"ph": "X", "pid": pid, "tid": 0,
+                                   "name": phase, "cat": "phase",
+                                   "ts": us(sub), "dur": round(d * 1e6, 3),
+                                   "args": {"launch": r.index}})
+                    sub += d
             cursor += dur
+        for clock, phase, start, end in r.phase_spans():
+            if clock != "device":
+                continue
+            if pid not in device_tids:
+                device_tids.add(pid)
+                events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                               "tid": 1, "args": {"name": "device"}})
+            events.append({"ph": "X", "pid": pid, "tid": 1,
+                           "name": f"{phase} {r.index}", "cat": "device",
+                           "ts": us(start),
+                           "dur": round((end - start) * 1e6, 3),
+                           "args": {"launch": r.index}})
+
+    if pauses:
+        pid = pid_for("host:gc")
+        for start, end, gen in pauses:
+            events.append({"ph": "X", "pid": pid, "tid": 0,
+                           "name": f"gc gen {gen}", "cat": "gc",
+                           "ts": us(start),
+                           "dur": round((end - start) * 1e6, 3),
+                           "args": {"generation": gen}})
 
     for rid, evs in sorted(spans.items()):
         qid, ext = tm._doc_meta.get(rid, (-1, rid))

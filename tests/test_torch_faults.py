@@ -500,9 +500,10 @@ def test_faulty_backend_forwards_attributes(backends):
     proxy = inj.wrap(backends["proxy"])
     assert proxy.name == "proxy"
     assert proxy.rate_per_token == backends["proxy"].rate_per_token
-    proxy.host_overhead_s = 1.25           # setattr forwards to the inner
-    assert backends["proxy"].host_overhead_s == 1.25
-    backends["proxy"].host_overhead_s = 0.0
+    before = backends["proxy"].retire_after
+    proxy.retire_after = before + 7        # setattr forwards to the inner
+    assert backends["proxy"].retire_after == before + 7
+    backends["proxy"].retire_after = before
 
 
 def test_submit_validation(backends, docs):

@@ -1175,6 +1175,16 @@ def serve_once(models, params, docs, *, paged: bool, inflight: int):
           f"launches, latency p50 {p50:.1f} ms "
           f"p99 {p99:.1f} ms, kernel launches "
           f"{json.dumps(counts)}")
+    # every paged-plane launch captures or replays its op-suffix decode's
+    # CUDA graph; the gather plane decodes eagerly
+    graphs = {}
+    for name, be in srv.backends.items():
+        g = be._decode_graphs
+        n_ok = sum(1 for rec in srv.telemetry.launches.items()
+                   if rec.ok and rec.model == name)
+        assert g.captures + g.replays == (n_ok if paged else 0), name
+        graphs[name] = {"captures": g.captures, "replays": g.replays}
+    print(f"serve [{label}]: decode graphs {json.dumps(graphs)}")
     for qid, r in results.items():
         preds = "".join(str(r.pred[d]) for d in sorted(docs))
         exits = [list(r.exit_stage.values()).count(s) for s in range(3)]

@@ -119,9 +119,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     half = dh // 2
     assert sum(sections) == half, (sections, dh)
     inv = rope_freqs(dh, theta, x.device)                # [half]
-    sec_id = torch.tensor([c for c, n in enumerate(sections)
-                           for _ in range(n)], device=x.device)   # [half]
-    pos = positions3.float()[..., sec_id]                # [B, S, half]
+    # each frequency's position channel, by slicing: no index tensor is
+    # copied to the device, so a CUDA graph can capture the layer
+    p3 = positions3.float()
+    pos = torch.cat([p3[..., c:c + 1].expand(*p3.shape[:-1], n)
+                     for c, n in enumerate(sections)], dim=-1)  # [B, S, half]
     ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

@@ -48,12 +48,13 @@ batch padding).  A document keeps its slot until it exits its cascade
 unless a backend budget binds (``slot_budget`` / ``byte_budget``, with
 fewest-cached-tokens-lost eviction and bucket retirement).
 
-Stage steps run eagerly and update the arena tensors IN PLACE.
-Prefill-into-arena is the ``cached_len == 0`` case of extend, fraction
-extension writes the suffix at an offset with per-row true lengths
-masking bucket PAD out of the chunk, and the operation suffix runs as
-masked decode steps whose per-document ``kv_len`` rides through the
-decode kernel.
+Stage steps update the arena tensors IN PLACE.  Prefill-into-arena is
+the ``cached_len == 0`` case of extend, fraction extension writes the
+suffix at an offset with per-row true lengths masking bucket PAD out of
+the chunk, and the operation suffix runs as masked decode steps whose
+per-document ``kv_len`` rides through the decode kernel.  The extend
+runs eagerly; on the paged plane on CUDA the op-suffix decode replays
+one CUDA graph per launch signature (``serving.decode_graph``).
 
 Paged data plane (the default on CUDA for models whose serve-state is
 all full-attention KV caches): the stage step never copies arena rows.
@@ -98,6 +99,7 @@ lengths advance only after the step returns (``LMBackend._paged_step``).
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from dataclasses import dataclass, field
@@ -111,6 +113,7 @@ from ..core.tasks import Cascade
 from ..data.tokenizer import PAD, HashWordTokenizer, class_token
 from ..kernels.ops import _check_slots
 from ..models.runtime import DTYPES, resolve_device
+from . import decode_graph
 from .arena import BucketArena
 from .scheduler import (FAILED, RESOLVED, TIMED_OUT, DocRequest, LaunchSpec,
                         RequestQueue, RetryPolicy, SchedulingPolicy,
@@ -246,6 +249,8 @@ class GroupTicket:
     #                                  + width x decode steps
     tokens_real: int = 0             # real document + op tokens of them
     marks: Optional[PhaseMarks] = None
+    decode_graph: str = "eager"      # the decode's graph: replay, capture
+    #                                  or eager (``serving.decode_graph``)
     ts_sync: float = 0.0             # completion wait entered
     ts_ready: float = 0.0            # device results host-visible
 
@@ -318,6 +323,9 @@ class LMBackend:
     # callback rid -> {"query":..., "doc":...} installed by CascadeServer
     doc_info: Optional[Any] = field(default=None, repr=False)
     _sanitizer: Optional[Any] = field(default=None, repr=False)
+    # the paged op-suffix decode's CUDA graphs (``serving.decode_graph``)
+    _decode_graphs: decode_graph.DecodeGraphs = field(
+        default_factory=decode_graph.DecodeGraphs, repr=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -349,6 +357,7 @@ class LMBackend:
         self._doc_slot.clear()
         self._idle.clear()
         self._prefix_ids.clear()
+        self._decode_graphs.clear()
         self.prefix_hits = 0
         self.cow_copies = 0
         self.pressure_retired = 0
@@ -585,6 +594,7 @@ class LMBackend:
             ar.sanitizer.note_retire(bucket)
         self._alloc.retire_bucket(bucket)
         self._idle.pop(bucket, None)
+        self._decode_graphs.drop_bucket(bucket)
 
     def _s_alloc_for(self, bucket: int) -> int:
         s_alloc = bucket + self.op_reserve
@@ -649,10 +659,11 @@ class LMBackend:
                 "full-attention KV caches (LM.supports_paged_kv)"
         return self.paged
 
-    def _gather_step(self, arena_states, slots, new_tok, op_tok, kv_true,
+    def _gather_step(self, arena, slots, new_tok, op_tok, kv_true,
                      ext_true, *, c_len: int, op_len: int,
                      marks: Optional[PhaseMarks] = None):
         model, params = self.model, self.params
+        arena_states = arena.states
         st = model.take_states(arena_states, slots)
         if new_tok.shape[1] > 0:
             # prefill (c_len == 0) / fraction-extend into the arena;
@@ -671,15 +682,16 @@ class LMBackend:
         for t in range(op_len):
             tok = op_tok[t].expand(B)
             logits, st = model.decode_step(params, tok, st, kv_true + t)
-        return logits
+        return logits, decode_graph.EAGER
 
-    def _paged_step(self, arena_states, slots, new_tok, op_tok, kv_true,
+    def _paged_step(self, arena, slots, new_tok, op_tok, kv_true,
                     ext_true, *, c_len: int, op_len: int,
                     marks: Optional[PhaseMarks] = None):
         # PAGED data plane: the arena is never row-copied.  The extend
         # writes only the chunk's KV into the addressed rows and the
         # kernels read arena rows through slot ids.
         model, params = self.model, self.params
+        arena_states = arena.states
         if new_tok.shape[1] > 0:
             # A raise in here leaves written only positions [c_len, f_len)
             # of the rows.  Those lie at or above each row's committed
@@ -688,18 +700,31 @@ class LMBackend:
             # window below is the only state a failed step must undo.
             model.extend(params, {"tokens": new_tok}, arena_states,
                          q_offset=c_len, kv_len=ext_true, slots=slots)
-        # operation suffix: masked decode steps run IN PLACE over the
-        # arena.  The op tokens' KV lands at [kv_true, kv_true+op_len) of
-        # each row — positions that may hold live document KV (the true
-        # fraction can undershoot the padded cache) — so the window is
-        # snapshotted first and restored after: an O(B * op_len) undo log
-        # instead of an O(B * s_alloc) row copy, and the arena leaves the
-        # step bitwise identical to the gather path's.  The restore runs
-        # in ``finally``: a step that raises mid-suffix leaves the rows as
-        # they were (commit on success, as the reference's rebinding of
-        # the arena after a returned step does).
+        # operation suffix: one CUDA graph per launch signature where
+        # the state allows (``decode_graph``), else the eager loop
         if marks is not None:
             marks.split()
+        phase = functools.partial(self._paged_decode, arena_states,
+                                  op_len=op_len)
+        if decode_graph.eligible(self.device, arena):
+            return self._decode_graphs.run(arena, op_len, phase,
+                                           (slots, op_tok, kv_true))
+        return phase(slots, op_tok, kv_true), decode_graph.EAGER
+
+    def _paged_decode(self, arena_states, slots, op_tok, kv_true, *,
+                      op_len: int):
+        # masked decode steps run IN PLACE over the arena.  The op tokens'
+        # KV lands at [kv_true, kv_true+op_len) of each row — positions
+        # that may hold live document KV (the true fraction can undershoot
+        # the padded cache) — so the window is snapshotted first and
+        # restored after: an O(B * op_len) undo log instead of an
+        # O(B * s_alloc) row copy, and the arena leaves the step bitwise
+        # identical to the gather path's.  The restore runs in
+        # ``finally``: a step that raises mid-suffix leaves the rows as
+        # they were (commit on success, as the reference's rebinding of
+        # the arena after a returned step does).  Captured into a graph,
+        # the restore is part of every replay.
+        model, params = self.model, self.params
         logits = None
         B = slots.shape[0]
         saved = model.take_kv_window(arena_states, slots, kv_true, op_len)
@@ -743,14 +768,15 @@ class LMBackend:
                                           block_tables=block_tables)
         finally:
             model.put_kv_window(arena_states, slots, pos, 1, saved)
-        return logits
+        return logits, decode_graph.EAGER
 
     def _enqueue(self, arena: BucketArena, signature, reads, writes, step,
                  *args, marks: Optional[PhaseMarks] = None, **kwargs):
         """Run ``step`` under an open sanitizer bracket and record the
         completion event after its logits (timing-enabled where ``marks``
-        carry a device clock).  Returns (logits, event, sanitizer ticket);
-        the bracket closes here only if the step raises."""
+        carry a device clock).  Returns ((logits, how the decode ran),
+        event, sanitizer ticket); the bracket closes here only if the
+        step raises."""
         san = arena.sanitizer
         ticket = None
         if san is not None:
@@ -759,7 +785,7 @@ class LMBackend:
                                       scratch=arena.scratch_slot)
         try:
             with torch.no_grad():
-                logits = step(*args, marks=marks, **kwargs)
+                out = step(*args, marks=marks, **kwargs)
             event = marks.end_event() if marks is not None else None
             if event is None and self.device.type == "cuda":
                 event = torch.cuda.Event()
@@ -768,7 +794,7 @@ class LMBackend:
             if san is not None:
                 san.end_launch(ticket)
             raise
-        return logits, event, ticket
+        return out, event, ticket
 
     # ------------------------------------------------------- prefix sharing
     def prefix_slot_needed(self, bucket: int, op_id: Optional[str]) -> bool:
@@ -1009,10 +1035,10 @@ class LMBackend:
             self._gather_step
         t2 = time.perf_counter()
         marks = self._open_phases(t2)
-        logits, event, ticket = self._enqueue(
+        (logits, graph), event, ticket = self._enqueue(
             arena, (self.name, "step", bucket, eff_c, f_len, B),
             set(slots), set(slots), step,
-            arena.states, self._to_device(slots_arr),
+            arena, self._to_device(slots_arr),
             self._to_device(new_tok),
             self._to_device(np.asarray(op_tokens, np.int32)),
             self._to_device(kv_true), self._to_device(ext_true),
@@ -1031,7 +1057,8 @@ class LMBackend:
             ts_enqueue=t2, ts_dispatched=t3,
             copy_bytes=self._copy_bytes(bucket, B, op_len),
             rows_computed=Bp * (n_new + op_len),
-            tokens_real=int(new_d.sum()) + B * op_len, marks=marks)
+            tokens_real=int(new_d.sum()) + B * op_len, marks=marks,
+            decode_graph=graph)
 
     def _dispatch_group_prefix(self, ids, doc_tokens, bucket, f_len,
                                fraction, eff_c, op_tokens, n_classes,
@@ -1160,7 +1187,7 @@ class LMBackend:
         marks = self._open_phases(t2)
         # block-table columns resolve to slots + the pinned prefix row:
         # writes land in the private rows, the row is the shared read
-        logits, event, ticket = self._enqueue(
+        (logits, graph), event, ticket = self._enqueue(
             arena, (self.name, "prefix_step", op_key, bucket, eff_c, f_len,
                     B),
             set(slots) | {row}, set(slots), self._prefix_step,
@@ -1185,7 +1212,8 @@ class LMBackend:
             # one readout decode step, where the standard plane decodes
             # the op suffix (billed as P tokens all the same)
             rows_computed=Bp * (n_new + 1),
-            tokens_real=int(new_d.sum()) + B, marks=marks)
+            tokens_real=int(new_d.sum()) + B, marks=marks,
+            decode_graph=graph)
 
     def _open_phases(self, t_start: float) -> Optional[PhaseMarks]:
         tm = self.telemetry
@@ -2054,7 +2082,8 @@ class CascadeServer:
             extend_dispatch_s=timing.get("extend", dispatch),
             decode_dispatch_s=timing.get("decode", 0.0),
             rows_computed=g.rows_computed if done else 0,
-            tokens_real=g.tokens_real if done else 0)
+            tokens_real=g.tokens_real if done else 0,
+            decode_graph=g.decode_graph if done else None)
         for k in DEVICE_FIELDS:
             setattr(rec, k, timing.get(k))
         tm.record_launch(rec)

@@ -122,6 +122,11 @@ entry feeds every live hub), and ``step_host_s``: the server step's own
 time — its duration less the completion waits and the dispatch spans of
 the launches it enqueued — on the ok record of the launch it completed
 (a step that completed none carries it to the next ok record).
+``decode_graph`` says how the launch's op-suffix decode ran
+(``serving.decode_graph``): ``replay`` of a CUDA graph an earlier launch
+captured, ``capture`` (captured, then replayed) or ``eager``; the hub
+totals ``decode_graph_captures`` and ``decode_graph_replays`` count them
+(in the snapshot's counters).
 
 Exporters
 ---------
@@ -415,6 +420,10 @@ class LaunchRecord:
     tokens_real: int = 0
     gc_s: float = 0.0              # collector pauses since the last record
     step_host_s: float = 0.0       # the completing step's own host time
+    # how the op-suffix decode ran: "replay" (a CUDA graph captured by an
+    # earlier launch), "capture" (captured, then replayed, by this one)
+    # or "eager"; None on a launch that did not complete
+    decode_graph: Optional[str] = None
 
     @property
     def occupancy(self) -> float:
@@ -570,6 +579,8 @@ class Telemetry:
         self.gc_total_s = 0.0
         self.rows_computed_total = 0
         self.tokens_real_total = 0
+        self.decode_graph_captures = 0
+        self.decode_graph_replays = 0
         self._gc_pending = 0.0       # pauses not yet on a record
         self._step_host_pending = 0.0  # step host time not yet on one
         # device clock origin: (event, host stamp or None); the anchor
@@ -729,6 +740,10 @@ class Telemetry:
         self.inflight_total_s += rec.inflight_s
         self.rows_computed_total += rec.rows_computed
         self.tokens_real_total += rec.tokens_real
+        if rec.decode_graph == "capture":
+            self.decode_graph_captures += 1
+        elif rec.decode_graph == "replay":
+            self.decode_graph_replays += 1
         be = rec.model or "?"
         self.count("serve_launches_total", 1, backend=be,
                    ok=str(rec.ok).lower())
@@ -813,6 +828,8 @@ class Telemetry:
                 "segments_sum_ok": self.segments_sum_ok(),
                 "rows_computed": self.rows_computed_total,
                 "tokens_real": self.tokens_real_total,
+                "decode_graph_captures": self.decode_graph_captures,
+                "decode_graph_replays": self.decode_graph_replays,
             },
             "timeline": timeline,
         }

@@ -318,8 +318,9 @@ def test_no_library_attention_in_port():
 
 @pytest.mark.cuda
 def test_cuda_engine_paged_equals_gather_bitwise():
-    """On the card: the paged plane (paged kernels) and the gather plane
-    (dense kernels, same CUDA bodies) answer bitwise alike."""
+    """On the card: the paged plane (paged kernels, the op-suffix decode
+    as CUDA graphs) and the gather plane (dense kernels, same CUDA
+    bodies, eager) answer bitwise alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     m = LM(_rcfg(), device="cuda")
@@ -333,6 +334,8 @@ def test_cuda_engine_paged_equals_gather_bitwise():
         eng = CascadeEngine(backends, OPS, n_classes=2, batch_size=4,
                             device="cuda")
         results[paged] = eng.run(_ladder(), _PAGED_DOCS)
+        # the paged plane's op-suffix decode replays CUDA graphs
+        assert (backends["proxy"]._decode_graphs.replays > 0) == paged
     assert results[True].conf == results[False].conf
     assert results[True].doc_cost == results[False].doc_cost
 
@@ -364,6 +367,7 @@ def test_cuda_inflight_three_equals_inflight_one_bitwise():
         for i, d in enumerate(sorted(docs)):
             h.submit(d, docs[d], arrival=float(i))
         out[inflight] = (srv, h.drain())
+        assert backends["proxy"]._decode_graphs.replays > 0
     (s1, r1), (s3, r3) = out[1], out[3]
     assert s1._max_inflight_seen == 1 and s3._max_inflight_seen >= 2
     assert r3.pred == r1.pred

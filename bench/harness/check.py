@@ -13,6 +13,12 @@ reference (``bench/reference``), each number beside its limit.
   of that stage's threshold where the reference routes otherwise
   (escalated where it would resolve, resolved where it would escalate);
   0 when they agree.
+* ``oracle_margin_p50``, where the cell file asks for
+  ``check_oracle_docs: n``: the median of the same margin error over
+  ``n`` more resolved documents that exited at the oracle's stage, drawn
+  from the seed apart from the sample above (which it leaves as it is).
+  The oracle's answers alone, so that a fault in the oracle's layers
+  shows however few of the sample's documents reach it.
 * ``billing_mismatch``: resolved documents whose $ differs from what the
   reference bills for the served path (exact: limit 0).
 * ``unresolved``: documents judged that never resolved (limit 0).
@@ -25,7 +31,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from ..reference.cascade import decide, stage_table, total_cost, walk
-from ..reference.model import Seq, class_logits
+from ..reference.layers import Seq
 from ..reference.tokenizer import Tokenizer, class_token
 
 NOTHING = 1e30          # a number read over no document fails its limit
@@ -47,6 +53,19 @@ def sample_docs(docs, seed: int, k: int) -> list:
     rng = np.random.default_rng([abs(int(seed)), 0x5EED])
     pick = rng.choice(len(rest), size=min(k - 1, len(rest)), replace=False)
     return [longest] + [rest[i] for i in sorted(pick)]
+
+
+def oracle_docs(docs, seed: int, k: int, stages, taken) -> list:
+    """``k`` resolved documents that exited at their tenant's last stage
+    (the oracle's), drawn from the seed among those not in ``taken``."""
+    skip = {id(r) for r in taken}
+    pool = sorted((r for r in docs if r.status == "resolved"
+                   and id(r) not in skip
+                   and r.exit_stage == len(stages[r.doc.tenant]) - 1),
+                  key=lambda r: r.doc.doc_id)
+    rng = np.random.default_rng([abs(int(seed)), 0x0AC1E])
+    pick = rng.choice(len(pool), size=min(k, len(pool)), replace=False)
+    return [pool[i] for i in sorted(pick)]
 
 
 def stage_logits(cell, params: Mapping, docs, upto: Sequence[int],
@@ -74,8 +93,9 @@ def stage_logits(cell, params: Mapping, docs, upto: Sequence[int],
         [None] * (u + 1) for u in upto]
     for model, items in per_model.items():
         spec = cfg["models"][model]["port"]
-        lg = class_logits(spec, params[model], [s for _, _, s in items],
-                          classes, precision).double().cpu().numpy()
+        lg = cell.family(model).class_logits(
+            spec, params[model], [s for _, _, s in items], classes,
+            precision).double().cpu().numpy()
         for (i, s, _), row in zip(items, lg):
             out[i][s] = row
     return out
@@ -112,7 +132,11 @@ def path_numbers(stages, exit_stage: int, pred: int, conf: float,
     return margin, gap
 
 
-def judge(ctx, params: Mapping, cell) -> Dict[str, Dict[str, float]]:
+def judge(ctx, params: Mapping, cell, detail: Optional[dict] = None
+          ) -> Dict[str, Dict[str, float]]:
+    """Each compared number beside its limit; ``detail``, where given,
+    receives the judged documents (``sample``, ``extra``: the oracle
+    draw) and their (margin error, routing gap) pairs (``nums``)."""
     serve, cfg = cell.serve, cell.config
     limits = serve["limits"]
     resolved = [r for r in ctx.docs if r.status == "resolved"]
@@ -124,13 +148,25 @@ def judge(ctx, params: Mapping, cell) -> Dict[str, Dict[str, float]]:
         if total_cost(runs) != r.cost:
             mismatch += 1
     sample = sample_docs(ctx.docs, ctx.seed, int(serve["check_docs"]))
+    extra = oracle_docs(ctx.docs, ctx.seed,
+                        int(serve.get("check_oracle_docs", 0)), ctx.stages,
+                        sample)
     values = dict.fromkeys(("margin_err", "routing_gap"), NOTHING)
-    if sample:
-        ref = stage_logits(cell, params, sample,
-                           [r.exit_stage for r in sample])
-        values = sample_numbers([
-            path_numbers(ctx.stages[r.doc.tenant], r.exit_stage, r.pred,
-                         r.conf, ref[i]) for i, r in enumerate(sample)])
+    if "check_oracle_docs" in serve:
+        values["oracle_margin_p50"] = NOTHING
+    judged, nums = sample + extra, []
+    if judged:
+        ref = stage_logits(cell, params, judged,
+                           [r.exit_stage for r in judged])
+        nums = [path_numbers(ctx.stages[r.doc.tenant], r.exit_stage, r.pred,
+                             r.conf, ref[i]) for i, r in enumerate(judged)]
+        if sample:
+            values.update(sample_numbers(nums[:len(sample)]))
+        if extra:
+            values["oracle_margin_p50"] = float(
+                np.median([m for m, _ in nums[len(sample):]]))
+    if detail is not None:
+        detail.update(sample=sample, extra=extra, nums=nums)
     checks = {n: {"value": values[n], "limit": lim}
               for n, lim in limits.items()}
     checks["billing_mismatch"] = {"value": mismatch, "limit": 0}

@@ -23,7 +23,6 @@ import torch
 
 from . import guard
 from .spec import Cell, reader
-from .weights import make_params
 from ..traffic.generator import Doc, make_traffic
 
 
@@ -148,8 +147,8 @@ class Run:
         self.params, backends = {}, {}
         for name, m in cfg["models"].items():
             model = port_model(m["port"], self.device)
-            self.params[name] = make_params(m["port"], m["weight_seed"],
-                                            self.device)
+            self.params[name] = self.cell.family(name).make_params(
+                m["port"], m["weight_seed"], self.device)
             backends[name] = LMBackend(
                 name=name, model=model, params=self.params[name],
                 tokenizer=tok, rate_per_token=cfg["rates_per_token"][name],

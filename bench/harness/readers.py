@@ -10,9 +10,8 @@ from typing import Iterable, List, Optional, Sequence
 
 from ..reference.cascade import frac_len
 from ..reference.tokenizer import Tokenizer
-from ..work.formulas import (PEAK_BF16_FLOPS, DocStep, decode_call,
-                             extend_call, launch_model_flops,
-                             least_seconds, shape_of)
+from ..work.formulas import (PEAK_BF16_FLOPS, DocStep, launch_model_flops,
+                             least_seconds)
 from .trace import busy_seconds, kernel_class
 
 
@@ -117,17 +116,18 @@ def roofline(ctx, kernels: Sequence[str], part: str) -> Optional[float]:
         return None
     least = 0.0
     for launch in ctx.launches:
-        spec = ctx.specs[launch["rec"].model]
-        sh = shape_of(spec)
+        model = launch["rec"].model
+        fam, spec = ctx.cell.family(model), ctx.specs[model]
+        layers = fam.attention_layers(spec)
         steps = _doc_steps(ctx, launch)
         if part == "extend":
-            f, b = extend_call(sh, [(d.cached, d.new) for d in steps])
+            f, b = fam.extend_call(spec, [(d.cached, d.new) for d in steps])
             if f > 0:
-                least += sh.layers * least_seconds(f, b)
+                least += layers * least_seconds(f, b)
         else:
             for t in range(steps[0].op_len if steps else 0):
-                f, b = decode_call(sh, [d.kv + t + 1 for d in steps])
-                least += sh.layers * least_seconds(f, b)
+                f, b = fam.decode_call(spec, [d.kv + t + 1 for d in steps])
+                least += layers * least_seconds(f, b)
     spent = kernel_seconds(ctx, kernels)
     if spent <= 0 or least <= 0:
         return None
@@ -144,7 +144,8 @@ def mfu(ctx) -> Optional[float]:
     if not ops:
         return None
     span = max(o.end for o in ops) - ctx.t_open
-    flops = sum(launch_model_flops(ctx.specs[l["rec"].model],
+    flops = sum(launch_model_flops(ctx.cell.family(l["rec"].model),
+                                   ctx.specs[l["rec"].model],
                                    _doc_steps(ctx, l))
                 for l in ctx.launches)
     return 100.0 * flops / (span * PEAK_BF16_FLOPS)

@@ -4,19 +4,25 @@ A cell (``workloads[]``) names its configuration and its traffic mix;
 ``bench/configs/<config>.json``, ``bench/traffic/<traffic>.json`` and
 ``bench/workloads/<cell>.json`` hold them, and each metric of
 ``end_to_end`` and ``per_layer`` that the cell reports has its reader in
-``bench/metrics/<metric>.py``.  Adding a cell, a configuration, a mix or
-a per-layer metric is adding such files and entries: nothing here names
-one.
+``bench/metrics/<metric>.py``.  Each model of a configuration names its
+reference family, ``bench/reference/families/<name>.py`` (weights, plain
+forward pass, work counts), by its ``"reference"`` key.  Adding a cell, a
+configuration, a mix, a family or a per-layer metric is adding such files
+and entries: nothing here names one but the default family.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, List, Mapping
 
 BENCH = Path(__file__).resolve().parent.parent
+# the family of a model entry that names none
+DEFAULT_FAMILY = "gqa"
 
 
 @dataclass
@@ -33,6 +39,11 @@ class Cell:
     @property
     def chips(self) -> int:
         return int(self.entry.get("chips", 1))
+
+    def family(self, model: str) -> ModuleType:
+        """The reference family of the configuration's ``model``."""
+        return load_family(self.config["models"][model].get(
+            "reference", DEFAULT_FAMILY), self.bench_dir)
 
 
 def _load(path: Path) -> Dict[str, Any]:
@@ -58,12 +69,36 @@ def load_cell(benchmark: Mapping, name: str, bench_dir: Path = BENCH
     names = [m["name"] for m in e2e]
     per_layer = [m for m in benchmark["per_layer"]
                  if _reports(m, name, names)]
-    return Cell(
+    cell = Cell(
         name=name, entry=entry,
         config=_load(bench_dir / "configs" / f"{entry['config']}.json"),
         traffic=_load(bench_dir / "traffic" / f"{entry['traffic']}.json"),
         serve=_load(bench_dir / "workloads" / f"{name}.json"),
         end_to_end=e2e, per_layer=per_layer, bench_dir=bench_dir)
+    for model in cell.config["models"]:
+        cell.family(model)
+    return cell
+
+
+_FAMILIES: Dict[Path, ModuleType] = {}
+
+
+def load_family(name: str, bench_dir: Path = BENCH) -> ModuleType:
+    """The module ``bench/reference/families/<name>.py``, loaded once."""
+    path = (bench_dir / "reference" / "families" / f"{name}.py").resolve()
+    if path not in _FAMILIES:
+        if not path.is_file():
+            have = sorted(p.stem for p in path.parent.glob("*.py")
+                          if not p.stem.startswith("_"))
+            raise ValueError(f"no reference family {name!r} ({path} is "
+                             f"not there); have {have}")
+        mod_name = f"bench_family_{name}_{len(_FAMILIES)}"
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod     # for its dataclasses' annotations
+        spec.loader.exec_module(mod)
+        _FAMILIES[path] = mod
+    return _FAMILIES[path]
 
 
 def reader(metric: str, bench_dir: Path = BENCH) -> Callable:

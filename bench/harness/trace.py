@@ -13,6 +13,7 @@ copies, indexing).
 """
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,16 +69,37 @@ class DeviceTrace:
         self.prof.__exit__(None, None, None)
         raw = device_events(self.prof)
         self.prof = None
-        marks = sorted(r for r in raw if MARKER in r[0])
-        if len(marks) < 2:
-            raise RuntimeError(f"device trace: {len(marks)} marker kernels "
-                               f"found of 2 ({len(raw)} device ops)")
+        self.ops = place_ops(raw, self.marks[0], self.marks[-1])
+
+
+def place_ops(raw: Sequence[Tuple[str, float, float]], h0: float,
+              h1: float) -> List[Op]:
+    """The device operations of ``raw`` (name, start us, end us) on the
+    host's clock, markers removed: the open and close markers sit at the
+    host stamps ``h0`` and ``h1``.  Where the profiler dropped one of the
+    two records (a window of ~2.5 million operations has lost one), the
+    other ties the clocks at the trace's own rate of a microsecond."""
+    marks = sorted(r for r in raw if MARKER in r[0])
+    ops = [r for r in raw if MARKER not in r[0]]
+    if len(marks) >= 2:
         (_, a0, _), (_, a1, _) = marks[0], marks[-1]
-        h0, h1 = self.marks[0], self.marks[-1]
         scale = (h1 - h0) / max(a1 - a0, 1e-9)       # host s per trace us
-        self.ops = [Op(n, h0 + (s - a0) * scale, h0 + (e - a0) * scale)
-                    for n, s, e in raw if MARKER not in n]
-        self.ops.sort(key=lambda o: o.start)
+    elif len(marks) == 1 and ops:
+        a, scale = marks[0][1], 1e-6
+        before = sum(s < a for _, s, _ in ops)
+        # the open marker precedes the window's operations, the close
+        # marker follows them
+        a0 = a if 2 * before < len(ops) else a - (h1 - h0) / scale
+        print(f"device trace: one marker of two found (the "
+              f"{'close' if a0 == a else 'open'} marker's record lost), "
+              f"clocks tied by the other", file=sys.stderr, flush=True)
+    else:
+        raise RuntimeError(f"device trace: {len(marks)} marker kernels "
+                           f"found of 2 ({len(raw)} device ops)")
+    out = [Op(n, h0 + (s - a0) * scale, h0 + (e - a0) * scale)
+           for n, s, e in ops]
+    out.sort(key=lambda o: o.start)
+    return out
 
 
 def device_events(prof) -> List[Tuple[str, float, float]]:

@@ -1,6 +1,6 @@
 """Least time of the extend attention of the launches dispatched in the
 window over the device time of their flash extend kernels (profiler;
-bench/work/formulas.py)."""
+the work counts of the model's reference family)."""
 from bench.harness.readers import roofline
 
 KERNELS = ("flash_attention_tc_kernel", "flash_attention_kernel")

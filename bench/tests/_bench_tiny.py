@@ -69,10 +69,39 @@ def tiny_serve() -> dict:
 
 
 def tiny_cell(config: str = "qwen2vl-phi35moe", e2e=None,
-              per_layer=()) -> Cell:
+              per_layer=(), oracle_docs: int = 0) -> Cell:
+    """``oracle_docs``: the check's oracle draw (``check_oracle_docs``)
+    and its ``oracle_margin_p50`` limit, as in a cell whose oracle
+    answers most documents."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     e2e = [m for m in bench["end_to_end"] if e2e is None or m["name"] in e2e]
+    serve = tiny_serve()
+    if oracle_docs:
+        serve["check_oracle_docs"] = oracle_docs
+        serve["limits"]["oracle_margin_p50"] = 1e-4
     return Cell(name="tiny", entry={"name": "tiny", "chips": 1},
                 config=tiny_config(config), traffic=tiny_traffic(),
-                serve=tiny_serve(), end_to_end=copy.deepcopy(e2e),
+                serve=serve, end_to_end=copy.deepcopy(e2e),
                 per_layer=list(per_layer))
+
+
+def drained_checks(cell: Cell, seed: int, n_docs: int = 60) -> dict:
+    """The check's numbers over a closed loop run until ``n_docs``
+    documents have resolved and then drained: a fixed amount of work, so
+    the oracle draw is never short however slow the host."""
+    import math
+    import time
+
+    from bench.harness.check import judge
+    from bench.harness.core import Run
+    run = Run(cell, seed, 1.0, False, "cpu", time.perf_counter())
+    run.check_imports = False
+    run.build()
+    run.start_loop()
+    while sum(r.t_done is not None for r in run.recs.values()) < n_docs:
+        run.step()
+    run.drain()
+    run.ctx.t_open, run.ctx.t_close = 0.0, math.inf
+    run.collect()
+    return judge(run.ctx, run.params, cell)
+

@@ -1,12 +1,31 @@
-"""The yardstick's operation and byte counts against hand counts."""
+"""The yardstick's operation and byte counts against hand counts: the
+default reference family's (as a configuration that names no family
+gets them) and the whole step's."""
 import pytest
 
 pytest.importorskip("torch")
 
 import _bench_tiny  # noqa: E402,F401
-from bench.work.formulas import (DocStep, Shape, active_params,  # noqa: E402
-                                 decode_call, extend_call,
-                                 launch_model_flops, least_seconds)
+from bench.harness.spec import DEFAULT_FAMILY, load_family  # noqa: E402
+from bench.work.formulas import (DocStep, launch_model_flops,  # noqa: E402
+                                 least_seconds)
+
+FAM = load_family(DEFAULT_FAMILY)
+Shape, active_params = FAM.Shape, FAM.active_params
+
+
+def _spec(sh):
+    return {"num_heads": sh.heads, "num_kv_heads": sh.kv_heads,
+            "head_dim": sh.head_dim, "num_layers": sh.layers,
+            "dtype": "bfloat16"}
+
+
+def extend_call(sh, docs):
+    return FAM.extend_call(_spec(sh), docs)
+
+
+def decode_call(sh, kvs):
+    return FAM.decode_call(_spec(sh), kvs)
 
 
 @pytest.mark.parametrize("sh", [Shape(16, 8, 128, 28), Shape(12, 2, 128, 1)])
@@ -42,8 +61,9 @@ def test_bench_formulas_step():
     moe = dict(dense, moe={"num_experts": 4, "top_k": 2})
     assert active_params(moe) == 3 * (attn + 2 * 3 * 8 * 16 + 8 * 4)
     sh = Shape(2, 1, 4, 3)
-    fl = launch_model_flops(dense, [DocStep(cached=0, new=2, kv=2,
-                                            op_len=1)])
+    assert FAM.attention_layers(dense) == 3
+    fl = launch_model_flops(FAM, dense, [DocStep(cached=0, new=2, kv=2,
+                                                 op_len=1)])
     f_ext, _ = extend_call(sh, [(0, 2)])
     f_dec, _ = decode_call(sh, [3])
     assert fl == 3 * 2 * active_params(dense) + 3 * (f_ext + f_dec) \

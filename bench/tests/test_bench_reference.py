@@ -42,6 +42,14 @@ def test_bench_reference_agrees_with_the_port(device, config):
     assert checks["margin_err"]["value"] < 1e-4
 
 
+def test_bench_reference_oracle_draw_agrees_with_the_port():
+    cell = _bench_tiny.tiny_cell("qwen2vl-phi35moe", oracle_docs=6)
+    checks = _bench_tiny.drained_checks(cell, 2**32 + 19)
+    assert all(c["value"] <= c["limit"] for c in checks.values()), checks
+    # f32 on both sides: the median over the oracle's answers is rounding
+    assert checks["oracle_margin_p50"]["value"] < 1e-4
+
+
 def test_bench_reference_control_fails(device):
     cell = _bench_tiny.tiny_cell("qwen2vl-phi35moe")
     run = Run(cell, 23, 1.0, False, device, time.perf_counter())

@@ -10,8 +10,9 @@ from types import SimpleNamespace  # noqa: E402
 import _bench_tiny  # noqa: E402
 from bench.harness.core import Run  # noqa: E402
 from bench.harness.readers import kernel_seconds  # noqa: E402
-from bench.harness.trace import (Op, busy_seconds, gap_medians,  # noqa: E402
-                                 kernel_class, labelled_gaps)
+from bench.harness.trace import (MARKER, Op, busy_seconds,  # noqa: E402
+                                 gap_medians, kernel_class, labelled_gaps,
+                                 place_ops)
 
 
 class _Rec:
@@ -31,6 +32,22 @@ def test_bench_trace_busy_and_gaps():
     med = gap_medians(ops, 0.0, 1.3, [_Rec()])
     assert med["dispatch"] == (1, pytest.approx(0.4))
     assert labelled_gaps(ops, 0.0, 1.3, [])[0][0] == "harness"
+
+
+@pytest.mark.parametrize("lost", [None, 0, -1])
+def test_bench_trace_clocks_tied_by_the_markers(lost):
+    # markers 50 s apart on both clocks; one operation 1 s after the open
+    marks = [(MARKER, 1e6, 1e6 + 10), (MARKER, 51e6, 51e6 + 10)]
+    ops = [("k", 2e6, 3e6), ("j", 4e6, 4.5e6)]
+    if lost is not None:
+        del marks[lost]
+    placed = place_ops(marks + ops, 5.0, 55.0)
+    assert [o.name for o in placed] == ["k", "j"]
+    assert [(o.start, o.end) for o in placed] == [
+        (pytest.approx(6.0), pytest.approx(7.0)),
+        (pytest.approx(8.0), pytest.approx(8.5))]
+    with pytest.raises(RuntimeError, match="0 marker kernels"):
+        place_ops(ops, 5.0, 55.0)
 
 
 def test_bench_trace_kernel_classes():

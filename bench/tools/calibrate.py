@@ -1,13 +1,16 @@
 """Find a cell's routing thresholds on the card, once, when the cell is
-defined: the confidence quantiles that send about half of the documents
-out at stage 0 and half of the rest out at stage 1.
+defined: the confidence quantiles that send a share of the documents
+that reach each stage out there (``--exit-shares``, one a stage with
+thresholds; by default half at stage 0 and half of the rest at stage 1).
 
-    python bench/tools/calibrate.py --workload <cell> --docs 256 --seed 1
+    python bench/tools/calibrate.py --workload <cell> --docs 256 --seed 1 \
+        --exit-shares 0.5 0.5
 
-Runs each stage of the cell's tenants through the program's stage-step
-API (``LMBackend.run_stage``) over ``--docs`` documents of the cell's
-traffic and prints the confidence quartiles and the thresholds, which go
-into ``bench/workloads/<cell>.json`` by hand.
+Builds the cell as a run does (the models' weights from their reference
+families), runs each stage of the cell's tenants through the program's
+stage-step API (``LMBackend.run_stage``) over ``--docs`` documents of the
+cell's traffic and prints the confidence quartiles and the thresholds,
+which go into ``bench/workloads/<cell>.json`` by hand.
 """
 import argparse
 import json
@@ -32,6 +35,8 @@ def main() -> None:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--docs", type=int, default=256)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--exit-shares", type=float, nargs="+",
+                    default=[0.5, 0.5])
     args = ap.parse_args()
     cell = load_cell(load_benchmark(__import__("pathlib").Path(ROOT)),
                      args.workload)
@@ -39,14 +44,15 @@ def main() -> None:
     run = Run(cell, args.seed, 1.0, False, "cuda", time.perf_counter())
     run.build()
     server, B = run.server, cell.serve["batch"]
-    be = server.backends["proxy"]
     docs = [d for ds in run.traffic.docs for d in ds]
-    toks = {d.doc_id: np.asarray(be.tokenizer.encode(d.text), np.int32)
+    tok = next(iter(server.backends.values())).tokenizer
+    toks = {d.doc_id: np.asarray(tok.encode(d.text), np.int32)
             for d in docs}
 
-    def stage(ids, op, frac):
+    def stage(ids, model, op, frac):
+        be = server.backends[model]
         conf = {}
-        optok = np.asarray(be.tokenizer.encode(cell.config["operations"][op]),
+        optok = np.asarray(tok.encode(cell.config["operations"][op]),
                            np.int32)
         by = {}
         for d in ids:
@@ -65,18 +71,17 @@ def main() -> None:
               flush=True)
         return conf
 
-    ids = [d.doc_id for d in docs]
     out = {}
     for k, t in enumerate(cell.serve["tenants"]):
-        s0, s1 = t["stages"]
-        c0 = stage(ids, s0["op"], s0["fraction"])
-        t0 = float(np.quantile(list(c0.values()), 0.5))
-        rest = [d for d in ids if c0[d] < t0]
-        c1 = stage(rest, s1["op"], s1["fraction"])
-        t1 = float(np.quantile(list(c1.values()), 0.5))
-        out[f"tenant{k}"] = [t0, t1]
-        for d in ids:
-            be.release(d)
+        ids, out[f"tenant{k}"] = [d.doc_id for d in docs], []
+        for st, share in zip(t["stages"], args.exit_shares):
+            c = stage(ids, st["model"], st["op"], st["fraction"])
+            th = float(np.quantile(list(c.values()), 1.0 - share))
+            out[f"tenant{k}"].append(th)
+            ids = [d for d in ids if c[d] < th]
+        for be in server.backends.values():
+            for d in docs:
+                be.release(d.doc_id)
     print("thresholds " + json.dumps(out), flush=True)
 
 
